@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (vieo_slam_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+  1. device: CUDA is required; prints the card and its power limit.
+  2. build: compiles every CUDA kernel of the port from csrc/ (nvcc,
+     sm_90a, one process per source, all in parallel).
+  3. kernels: each hand-written kernel against its plain PyTorch version
+     on the card, at the shapes the full-width main path gives it (B1 and
+     B2 bit-exact, B3 and B4 identical integers), timed with CUDA events.
+  4. known configuration: the 640x480 / 600-feature / 4-level stereo
+     sequence of tests/test_image_e2e.py, 40 frames through
+     build_stereo_frame + System.track_frame; must hold that test's bars
+     (0 LOST, ATE RMSE < 0.02 m, >= 5 keyframes, > 200 landmarks).
+  5. full width (the main path): 752x480, 1200 features, 8 levels, a
+     4096-landmark tracking slab, 30 frames.  Launch counters are zeroed
+     just before and read just after; every kernel must have run; 0 LOST.
+  6. profile: the last 6 frames of a 14-frame full-width run under
+     torch.profiler -- device busy share, device ops and host waits per
+     frame, the device time of each stage and the top device entries.
+
+Stdout ends with three lines: the kernels JSON, the card's name and power
+limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+Imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM3
+# bandwidth, and the f32 rate outside the tensor cores.  None of the four
+# kernels uses the tensor cores; their 32-bit integer ops are counted
+# against the same 67 T/s, which the card's int32 rate does not exceed.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+
+BASELINE = 0.2
+WORLD = dict(n_landmarks=1800, seed=3, extent=(6.0, 4.5, 3.0))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, reps=30, warmup=3):
+    """Median ms of fn() over warm runs, each bracketed by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Operations per pixel of FAST-9/16 at two thresholds + 3x3 NMS + blend,
+# counted for the least implementation: 16 circle differences; per
+# threshold 32 comparisons, 32 ops packing them into two 16-bit masks, 24
+# for the two 9-run tests by doubling, 96 for the exceedance sums (sub,
+# max, add per tap and sign) and max + select; then 2 x (8 max + compare
+# + select) for the NMS and compare + add + select for the blend.
+B1_OPS_PER_PX = 16 + 2 * (32 + 32 + 24 + 96 + 2) + 2 * 10 + 3
+# Per candidate pair of the Hamming best-2: 8 XOR, 8 popcount, 7 adds,
+# the row best/second update (3) and the column minimum (1).
+HAMMING_OPS = 27
+# Per pair of the projection window + level gate: 2 sub, 2 mul, add,
+# compare, level sub + abs + compare, 2 ands.
+WINDOW_OPS = 11
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+
+
+def scene(n_frames, width):
+    """The test_image_e2e world and outward circle, with a pinhole camera
+    of the given width (focal length scaled with it, height 480)."""
+    from vieo_slam_tpu_torch.cameras import models as cm
+    from vieo_slam_tpu_torch.sim import world as sim
+
+    s = width / 640.0
+    cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0, width,
+                          480)
+    world = sim.SyntheticWorld(sim.WorldConfig(**WORLD))
+    ts = np.arange(n_frames) * 0.1
+    Rwc, twc = sim.circle_trajectory(ts, radius=1.0, omega=0.25,
+                                     look_outward=True)
+    Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
+    return cam, cam.fx * BASELINE, world, ts, Rcw, tcw, twc
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_kernels(torch, dev):
+    from vieo_slam_tpu_torch.ops import cuda_fast, cuda_gather, cuda_matching
+    from vieo_slam_tpu_torch.ops import matching, orb
+
+    cam, bf, world, ts, Rcw, tcw, _ = scene(1, 752)
+    cfg = orb.OrbConfig(n_features=1200, n_levels=8)
+    left, right = world.render_stereo(cam, Rcw[0], tcw[0], BASELINE)
+    img = torch.from_numpy(left).to(dev)
+    pyramid = orb.build_pyramid(img, cfg)
+    rows = {}
+
+    # B1: FAST + NMS + blend at the 8 level shapes of one image.
+    th = (cfg.fast_threshold, cfg.fast_min_threshold)
+    err = 0.0
+    for im in pyramid:
+        got = cuda_fast.fast_nms_blend(im, *th)
+        want = cuda_fast.fast_nms_blend_plain(im, *th)
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            fail(f"B1 differs from its plain version at {tuple(im.shape)} "
+                 f"in {n} pixels")
+        err = max(err, float((got - want).abs().max()))
+    px = sum(im.numel() for im in pyramid)
+    rows["fast_nms_blend"] = dict(
+        ms=time_ms(torch, lambda: [cuda_fast.fast_nms_blend(im, *th)
+                                   for im in pyramid]),
+        plain_ms=time_ms(torch, lambda: [cuda_fast.fast_nms_blend_plain(
+            im, *th) for im in pyramid], reps=10),
+        max_abs_err=err, bound=bound(8 * px, B1_OPS_PER_PX * px),
+        shapes=[tuple(im.shape) for im in pyramid])
+
+    # B2: 53x53 tail patches around this image's selected keypoints (1200
+    # in all), the first few of every level moved onto the image border.
+    centers = []
+    for lv, im in enumerate(pyramid):
+        n_l = int(cfg.features_per_level[lv])
+        uv, _, _ = orb.select_keypoints(orb._blended_score(im, cfg), n_l, cfg)
+        h, w = im.shape
+        uv = uv.clone()
+        uv[:4] = torch.tensor([[0, 0], [w - 1, h - 1], [3, h - 1],
+                               [w - 1, 2]], dtype=uv.dtype, device=dev)
+        centers.append(uv.contiguous())
+    r = orb._TAIL_R
+    for im, c in zip(pyramid, centers):
+        if not torch.equal(cuda_gather.gather_patches(im, c, r),
+                           cuda_gather.gather_patches_plain(im, c, r)):
+            fail(f"B2 differs from its plain version at {tuple(im.shape)}")
+    n_kp = sum(int(c.shape[0]) for c in centers)
+    rows["gather_patches"] = dict(
+        ms=time_ms(torch, lambda: [cuda_gather.gather_patches(im, c, r)
+                                   for im, c in zip(pyramid, centers)]),
+        plain_ms=time_ms(torch, lambda: [cuda_gather.gather_patches_plain(
+            im, c, r) for im, c in zip(pyramid, centers)], reps=10),
+        max_abs_err=0.0,
+        bound=bound(4 * px + 8 * n_kp + 4 * n_kp * (2 * r + 1) ** 2, 0),
+        shapes=[n_kp, 2 * r + 1, 2 * r + 1])
+
+    # B3: the stereo search of this frame (1200 x 1200, stereo mask).
+    fl = orb.extract_orb(img, cfg, device=dev)
+    fr = orb.extract_orb(torch.from_numpy(right).to(dev), cfg, device=dev)
+    mask = matching.stereo_candidate_mask(
+        fl.uv, fl.level, fl.valid, fr.uv, fr.level, fr.valid,
+        min_disp=bf / 15.0, max_disp=bf / 0.3,
+        level_scales=cfg.level_scales.astype(np.float32)).contiguous()
+    M, N = mask.shape
+    got = cuda_matching.fused_best2(fl.desc, fr.desc, mask)
+    want = cuda_matching.fused_best2_plain(fl.desc, fr.desc, mask)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in
+              zip(got, want))
+    if err:
+        fail(f"B3 differs from its plain version (max |diff| {err})")
+    cand = int(mask.sum())
+    rows["fused_best2"] = dict(
+        ms=time_ms(torch, lambda: cuda_matching.fused_best2(
+            fl.desc, fr.desc, mask)),
+        plain_ms=time_ms(torch, lambda: cuda_matching.fused_best2_plain(
+            fl.desc, fr.desc, mask), reps=10),
+        max_abs_err=float(err),
+        bound=bound(32 * (M + N) + M * N + 4 * (3 * M + N),
+                    M * N + HAMMING_OPS * cand),
+        shapes=[M, N], candidates=cand)
+
+    # B4: a 4096-landmark tracking slab against the left image's 1200
+    # keypoints: ~1000 slab rows are the keypoints' own positions and
+    # descriptors, perturbed; the rest project elsewhere or are invalid.
+    g = torch.Generator(device="cpu").manual_seed(0)
+    LC = 4096
+    src = torch.randint(0, N, (LC,), generator=g).to(dev)
+    proj_uv = fl.uv[src] + 4.0 * torch.randn(LC, 2, generator=g).to(dev)
+    proj_uv[1000:] = torch.rand(LC - 1000, 2, generator=g).to(dev) \
+        * torch.tensor([752.0, 480.0], device=dev)
+    flips = torch.randint(0, 2, (LC, 8), generator=g, dtype=torch.int32)
+    proj_desc = (fl.desc[src] ^ (flips.to(dev) << 5)).contiguous()
+    proj_level = fl.level[src]
+    proj_valid = torch.arange(LC, device=dev) < 3000
+    scales = torch.from_numpy(cfg.level_scales.astype(np.float32)).to(dev)
+    radius = 15.0 * scales[proj_level.long()]
+    args = (proj_desc, fl.desc, proj_uv, radius, proj_level, proj_valid,
+            fl.uv, fl.level, fl.valid, 8)
+    got = cuda_matching.fused_projection_best2(*args)
+    want = cuda_matching.fused_projection_best2_plain(*args)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    if err:
+        fail(f"B4 differs from its plain version (max |diff| {err})")
+    cand = int(cuda_matching.projection_mask(*args[2:]).sum())
+    rows["fused_projection_best2"] = dict(
+        ms=time_ms(torch, lambda: cuda_matching.fused_projection_best2(
+            *args)),
+        plain_ms=time_ms(torch, lambda: cuda_matching.
+                         fused_projection_best2_plain(*args), reps=10),
+        max_abs_err=float(err),
+        bound=bound(32 * (LC + N) + 20 * LC + 16 * N + 4 * (3 * LC + N),
+                    WINDOW_OPS * LC * N + HAMMING_OPS * cand),
+        shapes=[LC, N], candidates=cand)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: end to end
+# ---------------------------------------------------------------------------
+
+
+def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
+                 slab=4096, profile_from=None):
+    """build_stereo_frame + System.track_frame over the sequence; returns
+    the system, the states, per-frame stage times, the ATE and the inputs.
+    With `profile_from`, the frames from that index on run under
+    torch.profiler, which is returned last (with its wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vieo_slam_tpu_torch.frontend.frame import build_stereo_frame
+    from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
+    from vieo_slam_tpu_torch.io.evaluate import ate
+    from vieo_slam_tpu_torch.ops import orb
+    from vieo_slam_tpu_torch.system import System, SystemConfig
+    from vieo_slam_tpu_torch.utils.metrics import metrics
+
+    cam, bf, world, ts, Rcw, tcw, twc = scene(n_frames, width)
+    cfg = orb.OrbConfig(n_features=n_features, n_levels=n_levels)
+    images = [world.render_stereo(cam, Rcw[i], tcw[i], BASELINE)
+              for i in range(n_frames)]
+    metrics.reset()
+    system = System(cam, bf, SystemConfig(tracker=TrackerConfig(
+        use_predicted_scale=True, local_landmark_cap=slab)), device=dev)
+    states, times = [], []
+    prof, prof_s = None, 0.0
+    for i, (left, right) in enumerate(images):
+        if i == profile_from:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("frame_build"):
+            frame = build_stereo_frame(
+                torch.from_numpy(left).to(dev),
+                torch.from_numpy(right).to(dev), cfg, bf=bf, min_depth=0.3,
+                max_depth=15.0, timestamp=float(ts[i]), device=dev)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lm0 = metrics.stages["local_mapping"].total
+        with record_function("track_frame"):
+            states.append(system.track_frame(frame))
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lm = metrics.stages["local_mapping"].total - lm0
+        times.append((t1 - t0, t2 - t1 - lm, lm))
+        if prof is not None:
+            prof_s += t2 - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    traj = system.tracker.trajectory
+    poses = np.asarray([-(R.T @ t) for _, R, t, _ in traj])
+    if not np.isfinite(poses).all():
+        fail("non-finite poses")
+    res = ate(np.asarray([x[0] for x in traj]), poses, ts, twc)
+    return system, states, times, res, (cam, bf, cfg, images), (prof, prof_s)
+
+
+def split_frame_build(torch, dev, cam, bf, cfg, images):
+    """Median ms of the two extractions and of the stereo search of a
+    frame, each stage synchronized (run after the counted pass)."""
+    from vieo_slam_tpu_torch.ops import matching, orb
+
+    ext, ste = [], []
+    for left, right in images:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl = orb.extract_orb(torch.from_numpy(left).to(dev), cfg, device=dev)
+        fr = orb.extract_orb(torch.from_numpy(right).to(dev), cfg,
+                             device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        matching.search_stereo_rectified(
+            fl.uv, fl.level, fl.desc, fl.valid, fr.uv, fr.level, fr.desc,
+            fr.valid, min_disp=bf / 15.0, max_disp=bf / 0.3,
+            level_scales=cfg.level_scales.astype(np.float32))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ext.append(t1 - t0)
+        ste.append(t2 - t1)
+    return 1e3 * float(np.median(ext)), 1e3 * float(np.median(ste))
+
+
+def summarize_profile(prof, wall_s, n_frames):
+    """Device busy share, kernel launches and host waits per frame, the
+    device time under each stage label, and the top device entries."""
+    events = prof.key_averages()
+    labels = ("frame_build", "track_frame")
+
+    def dev_us(e, total=False):
+        return getattr(e, "device_time_total" if total else
+                       "self_device_time_total", 0.0)
+
+    # Device-side entries: kernels, copies and fills (the profiler also
+    # mirrors the two stage labels onto the device timeline; they are
+    # spans, not work).
+    on_dev = [e for e in events if dev_us(e) > 0 and e.key not in labels
+              and "cuda" in str(getattr(e, "device_type", "")).lower()]
+    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    if not on_dev:
+        log("[6 profile] device time not measured: the profiler saw no CUDA "
+            "events")
+        return
+    launches = sum(e.count for e in on_dev)
+    ours_ms = sum(dev_us(e) for e in on_dev if any(
+        k in e.key for k in ("fast_nms_blend_kernel", "gather_patches_kernel",
+                             "best2_kernel"))) / 1e3
+    waits = {e.key: e.count for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpyAsync", "cudaEventSynchronize")}
+    wall_ms = 1e3 * wall_s / n_frames
+    log(f"[6 profile] {n_frames} full-width frames under torch.profiler: "
+        f"wall {wall_ms:.2f} ms/frame, device busy {busy_ms / n_frames:.2f} "
+        f"ms/frame, idle share {1 - busy_ms / (wall_ms * n_frames):.4f}, "
+        f"{launches / n_frames:.0f} device ops/frame, host waits/frame "
+        f"{ {k: round(v / n_frames, 1) for k, v in waits.items()} }; "
+        f"the four hand-written kernels {ours_ms / n_frames:.3f} ms/frame "
+        f"({ours_ms / busy_ms:.4f} of device time)")
+    for label in labels:
+        e = next((e for e in events if e.key == label), None)
+        if e is not None:
+            log(f"[6 profile] {label}: host {e.cpu_time_total / 1e3 / n_frames:.2f}"
+                f" ms/frame, device {dev_us(e, True) / 1e3 / n_frames:.2f} "
+                f"ms/frame")
+    for e in sorted(on_dev, key=dev_us, reverse=True)[:10]:
+        log(f"[6 profile]   device {dev_us(e) / 1e3 / n_frames:8.3f} ms/frame "
+            f"{e.count / n_frames:7.1f}x  {e.key[:90]}")
+    on_host = [e for e in events if e.key not in labels and e not in on_dev]
+    for e in sorted(on_host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        log(f"[6 profile]   host {e.self_cpu_time_total / 1e3 / n_frames:8.3f}"
+            f" ms/frame {e.count / n_frames:7.1f}x  {e.key[:90]}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device: this script runs the port on a "
+              "GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "vieo_slam_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} holds no vieo_slam_tpu_torch package",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from vieo_slam_tpu_torch.ops import cuda_build
+
+    # 1. device
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log(f"[1 device] {name}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvidia-smi: {smi}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    cuda_build.build_all(verbose=True)
+    for src in cuda_build.SOURCES:
+        cuda_build.library(src)
+    log(f"[2 build] {len(cuda_build.SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 3. kernels against their plain versions
+    t0 = time.perf_counter()
+    rows = check_kernels(torch, dev)
+    for k, r in rows.items():
+        log(f"[3 kernels] {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
+            f"max_abs_err {r['max_abs_err']}, shapes {r['shapes']}")
+    log(f"[3 kernels] all four equal their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 4. known configuration (tests/test_image_e2e.py)
+    t0 = time.perf_counter()
+    system, states, _, res, _, _ = run_sequence(torch, dev, 640, 600, 4, 40)
+    lost = sum(s.name == "LOST" for s in states)
+    n_kf, n_lm = system.map.n_keyframes(), system.map.n_landmarks()
+    log(f"[4 known] 40 frames: LOST {lost}, ATE RMSE {res['rmse']:.5f} m, "
+        f"{n_kf} keyframes, {n_lm} landmarks "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if lost or not res["rmse"] < 0.02 or n_kf < 5 or n_lm <= 200:
+        fail("known configuration misses the bars of test_image_e2e")
+
+    # 5. full width: the counted main-path run
+    n_frames, warm = 30, 5
+    cuda_build.reset_launches()
+    system, states, times, res, (cam, bf, cfg, images), _ = run_sequence(
+        torch, dev, 752, 1200, 8, n_frames)
+    launches = dict(cuda_build.LAUNCHES)
+    lost = sum(s.name == "LOST" for s in states)
+    t = 1e3 * np.asarray(times[warm:])
+    kf_frames = t[:, 2] > 0
+    log(f"[5 full width] {n_frames} frames 752x480, 1200 features, 8 levels, "
+        f"slab 4096: LOST {lost}, ATE RMSE {res['rmse']:.5f} m, "
+        f"{system.map.n_keyframes()} keyframes, "
+        f"{system.map.n_landmarks()} landmarks; launches {launches}")
+    ext_ms, ste_ms = split_frame_build(torch, dev, cam, bf, cfg,
+                                       images[warm:warm + 10])
+    log(f"[5 full width] median ms/frame after {warm} warm-up frames: "
+        f"frame build {np.median(t[:, 0]):.2f} (extract x2 {ext_ms:.2f}, "
+        f"stereo {ste_ms:.2f}), track {np.median(t[:, 1]):.2f}, "
+        f"local mapping {np.median(t[kf_frames, 2]) if kf_frames.any() else 0.0:.2f} "
+        f"on the {int(kf_frames.sum())} keyframe frames, total "
+        f"{np.median(t.sum(1)):.2f}")
+    if lost:
+        fail(f"full-width run lost track in {lost} frames")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        fail(f"kernels never launched on the main path: {idle}")
+
+    # 6. where the time goes: the last frames of a shorter full-width run
+    # under torch.profiler (after the counted run, so it adds no launches
+    # to phase 5's counts)
+    n_prof, prof_from = 14, 8
+    *_, (prof, prof_s) = run_sequence(torch, dev, 752, 1200, 8, n_prof,
+                                      profile_from=prof_from)
+    summarize_profile(prof, prof_s, n_prof - prof_from)
+
+    meta = {
+        "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99"),
+        "gather_patches": ("gather.cu", "vieo_slam_tpu/ops/pallas_gather.py:73"),
+        "fused_best2": ("matching.cu",
+                        "vieo_slam_tpu/ops/pallas_matching.py:246"),
+        "fused_projection_best2": (
+            "matching.cu", "vieo_slam_tpu/ops/pallas_matching.py:166"),
+    }
+    kernels = []
+    for k, (src, replaces) in meta.items():
+        r = rows[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": f"vieo_slam_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

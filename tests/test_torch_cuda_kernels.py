@@ -1,0 +1,123 @@
+"""Kernels B1-B4 on the GPU against their plain PyTorch versions, at the
+edge shapes that chip_smoke.py's main-path shapes do not reach: images
+smaller than one tile, ragged tiles, empty inputs, all-masked rows and
+columns, many exact Hamming ties and more columns than a block has
+threads.
+
+These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode)
+and skip elsewhere.  Run them on the card with
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
+
+Tolerance: none.  B1 repeats the plain version's f32 adds in the same
+order, B2 copies pixels, B3 and B4 return integers.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vieo_slam_tpu_torch.ops import cuda_build, cuda_fast, cuda_gather
+from vieo_slam_tpu_torch.ops import cuda_matching as cm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    return torch.device("cuda", 0)
+
+
+def assert_launched(name, fn):
+    """fn() launches kernel `name` exactly once."""
+    n0 = cuda_build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[name] == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 7), (33, 65), (134, 210),
+                                   (481, 753)])
+def test_fast_nms_blend(dev, shape):
+    rng = np.random.RandomState(sum(shape))
+    img = rng.rand(*shape).astype(np.float32) * 220 + 10
+    img[rng.randint(0, shape[0], 40), rng.randint(0, shape[1], 40)] = 255.0
+    x = torch.from_numpy(img).to(dev)
+    got = assert_launched("fast_nms_blend",
+                          lambda: cuda_fast.fast_nms_blend(x, 20.0, 7.0))
+    want = cuda_fast.fast_nms_blend_plain(x, 20.0, 7.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radius", [15, 26])
+def test_gather_patches(dev, radius):
+    rng = np.random.RandomState(radius)
+    img = torch.from_numpy(rng.rand(61, 97).astype(np.float32)).to(dev)
+    centers = np.concatenate([
+        np.stack([rng.randint(-40, 140, 300), rng.randint(-40, 100, 300)], -1),
+        [[0, 0], [96, 60], [-1, 60], [97, 61]]]).astype(np.int32)
+    c = torch.from_numpy(centers).to(dev)
+    got = assert_launched("gather_patches",
+                          lambda: cuda_gather.gather_patches(img, c, radius))
+    assert torch.equal(got, cuda_gather.gather_patches_plain(img, c, radius))
+    empty = cuda_gather.gather_patches(img, c[:0], radius)
+    assert empty.shape == (0, 2 * radius + 1, 2 * radius + 1)
+
+
+def descriptors(rng, n, n_unique):
+    words = rng.randint(0, 2 ** 32, (n_unique, 8), np.uint64).astype(np.uint32)
+    return words[rng.randint(0, n_unique, n)].view(np.int32)
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (37, 2000), (1200, 1200), (0, 5),
+                                 (5, 0)])
+def test_fused_best2(dev, M, N):
+    rng = np.random.RandomState(M + N)
+    a = torch.from_numpy(descriptors(rng, M, max(M // 3, 1))).to(dev)
+    b = torch.from_numpy(descriptors(rng, N, max(N // 3, 1))).to(dev)
+    mask = rng.rand(M, N) < 0.3
+    mask[: M // 10] = False
+    mask[:, : N // 10] = False
+    mask = torch.from_numpy(mask).to(dev)
+    want = cm.fused_best2_plain(a, b, mask)
+    if M and N:
+        got = assert_launched("fused_best2",
+                              lambda: cm.fused_best2(a, b, mask))
+    else:
+        got = cm.fused_best2(a, b, mask)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (530, 2100), (4096, 1200), (0, 7),
+                                 (9, 0)])
+def test_fused_projection_best2(dev, M, N):
+    rng = np.random.RandomState(M * 7 + N)
+    kp_uv = (rng.rand(N, 2) * [752, 480]).astype(np.float32)
+    pick = rng.randint(0, max(N, 1), M)
+    proj_uv = (kp_uv[pick] if N else np.zeros((M, 2), np.float32)) \
+        + rng.randn(M, 2).astype(np.float32) * 6
+    # Candidates exactly on the window boundary: du^2 + dv^2 == r^2.
+    if N:
+        proj_uv[: M // 8] = kp_uv[pick[: M // 8]] + np.float32(15.0) \
+            * np.array([[0.6, 0.8]], np.float32)
+    level_a = rng.randint(0, 8, M).astype(np.int32)
+    radius = (np.float32(15.0) * np.float32(1.2) ** level_a).astype(np.float32)
+    radius[: min(M, 3)] = -1.0
+    args = [torch.from_numpy(x).to(dev) for x in (
+        descriptors(rng, M, max(M // 2, 1)), descriptors(rng, N,
+                                                         max(N // 2, 1)),
+        proj_uv.astype(np.float32), radius, level_a, rng.rand(M) > 0.1,
+        kp_uv, rng.randint(0, 8, N).astype(np.int32), rng.rand(N) > 0.1)]
+    args.append(1)
+    want = cm.fused_projection_best2_plain(*args)
+    if M and N:
+        got = assert_launched("fused_projection_best2",
+                              lambda: cm.fused_projection_best2(*args))
+    else:
+        got = cm.fused_projection_best2(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

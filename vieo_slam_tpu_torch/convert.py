@@ -1,0 +1,72 @@
+"""Carry state from the JAX package into the port.
+
+The functions take the JAX package's objects as plain Python / numpy
+values (anything `np.asarray` accepts), so this module imports nothing of
+the JAX package.  With them a test can start both systems from the same
+camera, configuration, map and frame and compare one step.  Descriptors
+cross as int32 views of the uint32 words; the map keeps uint32.
+
+The BRIEF pattern and the FAST circle are constants, not state: the port
+regenerates them (ops/orb.py) and a test holds them equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .cameras import models as cm
+from .frontend.frame import Frame, make_frame_from_features
+from .map.map_state import MapConfig, MapState
+from .ops.orb import OrbConfig
+
+_MAP_ARRAYS = (
+    "kf_valid", "kf_Rcw", "kf_tcw", "kf_timestamp", "kf_frame_id", "kf_Rwb",
+    "kf_pwb", "kf_vwb", "kf_bg", "kf_ba", "kf_uv", "kf_level", "kf_desc",
+    "kf_ur", "kf_depth", "kf_kp_valid", "kf_lm_idx", "kf_prev", "kf_next",
+    "lm_valid", "lm_pw", "lm_desc", "lm_normal", "lm_min_dist", "lm_max_dist",
+    "lm_n_obs", "lm_visible", "lm_found", "lm_first_kf", "lm_ref_kf",
+)
+
+
+def camera_from_jax(jcam) -> cm.Camera:
+    """A pinhole Camera from the JAX package's Camera (numpy leaves)."""
+    if int(jcam.kind) != cm.PINHOLE:
+        raise NotImplementedError("only pinhole cameras are ported")
+    return cm.make_pinhole(
+        float(np.asarray(jcam.fx)), float(np.asarray(jcam.fy)),
+        float(np.asarray(jcam.cx)), float(np.asarray(jcam.cy)),
+        jcam.width, jcam.height, Rcr=np.asarray(jcam.Rcr),
+        tcr=np.asarray(jcam.tcr))
+
+
+def orb_config_from_jax(jcfg) -> OrbConfig:
+    return OrbConfig(**{f.name: getattr(jcfg, f.name)
+                        for f in dataclasses.fields(OrbConfig)})
+
+
+def map_from_jax(jmap) -> MapState:
+    """A copy of the JAX package's MapState (keyframe poses, landmarks,
+    descriptors, observations and counters)."""
+    cfg = MapConfig(**{f.name: getattr(jmap.cfg, f.name)
+                       for f in dataclasses.fields(MapConfig)})
+    m = MapState(cfg)
+    for name in _MAP_ARRAYS:
+        setattr(m, name, np.array(getattr(jmap, name), copy=True))
+    m.version = int(jmap.version)
+    m.big_change_idx = int(jmap.big_change_idx)
+    m._next_kf = int(jmap._next_kf)
+    m._next_lm = int(jmap._next_lm)
+    m._lm_free = list(jmap._lm_free)
+    return m
+
+
+def frame_from_jax(jframe, device=None) -> Frame:
+    """A port Frame from the JAX package's Frame."""
+    return make_frame_from_features(
+        np.asarray(jframe.uv), np.asarray(jframe.level),
+        np.asarray(jframe.angle), np.asarray(jframe.desc, np.uint32),
+        np.asarray(jframe.valid), ur=np.asarray(jframe.ur),
+        depth=np.asarray(jframe.depth),
+        timestamp=float(np.asarray(jframe.timestamp)), device=device)

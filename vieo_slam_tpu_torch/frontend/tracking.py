@@ -1,0 +1,343 @@
+"""Tracking: per-frame pose estimation state machine.
+
+Port of the stereo part of vieo_slam_tpu/frontend/tracking.py: the host
+runs the small state machine and local-map selection; the per-frame heavy
+step -- projecting a fixed-capacity landmark slab, windowed Hamming
+association (kernel B4) and motion-only BA -- runs as tensor code on the
+frame's device.  Relocalization and the monocular initializer come with
+their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..cameras import models as cm
+from ..map.map_state import MapState
+from ..math.lie import normalize_rotation_np
+from ..ops import matching
+from ..solvers.motion_ba import PoseObs, pose_optimization
+from .frame import Frame, desc_to_tensor
+
+
+class TrackState(enum.Enum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+
+@dataclasses.dataclass
+class TrackerConfig:
+    local_landmark_cap: int = 4096   # device slab for the local map
+    match_radius_coarse: float = 15.0
+    match_radius_fine: float = 6.0
+    min_matches_track: int = 12
+    min_inliers_ok: int = 25
+    kf_tracked_ratio: float = 0.9    # NeedNewKeyFrame 90% rule
+    kf_min_interval: int = 1         # frames between KFs (min)
+    kf_max_interval: int = 4         # force KF after this many frames
+    lost_retry_radius: float = 80.0  # wide re-search before giving up
+    # Adaptive stage-1 radius under rotational acceleration: the
+    # constant-velocity model errs by fx * (change of inter-frame
+    # rotation) pixels, so the coarse window widens by that much (capped).
+    adaptive_radius_gain: float = 1.5
+    adaptive_radius_max: float = 60.0
+    use_predicted_scale: bool = False  # PredictScale-driven search radii
+    th_depth: float = 4.0            # init/creation depth gate
+    # (stage1 rounds, stage1 iters, stage2 rounds, stage2 iters)
+    schedule: tuple = (2, 2, 1, 2)
+    opt_mode: str = "plm"            # "lm" | "plm" | "gn"
+
+
+class TrackKernelResult(NamedTuple):
+    Rcw: torch.Tensor
+    tcw: torch.Tensor
+    lm_match: torch.Tensor  # [LC] keypoint idx per local landmark (-1)
+    inlier: torch.Tensor    # [LC] inlier flags after pose opt
+    n_inliers: torch.Tensor
+    in_frustum: torch.Tensor  # [LC] landmark projected into the image
+
+
+def _track_kernel(Rcw0, tcw0, lm_pw, lm_desc, lm_level, lm_valid,
+                  frame: Frame, inv_sigma2_tab, level_scales,
+                  radius_coarse, radius_fine, bf, cam: cm.Camera,
+                  schedule: tuple = (2, 3, 2, 2), opt_mode: str = "lm"):
+    """Two-stage frame tracking against a local-landmark slab.
+
+    Stage 1: project at the predicted pose, wide-radius association,
+    pose optimization.  Stage 2: re-project at the refined pose,
+    tight-radius association, pose optimization."""
+
+    def associate_and_optimize(Rcw, tcw, radius, level_tol, max_hamming,
+                               ratio, rounds, iters):
+        pc = torch.einsum("ij,nj->ni", Rcw, lm_pw) + tcw
+        uv_proj = cm.project(cam, pc)
+        vis = lm_valid & (pc[:, 2] > 0.1) & cm.in_image(cam, uv_proj, 1.0)
+        idx, _ = matching.search_by_projection(
+            uv_proj, lm_level, lm_desc, vis,
+            frame.uv, frame.level, frame.desc, frame.valid,
+            radius=radius, level_scales=level_scales,
+            max_dist=max_hamming, ratio=ratio, level_tolerance=level_tol)
+        kp = idx.clamp_min(0).long()
+        lv = frame.level[kp].long().clamp(0, inv_sigma2_tab.shape[0] - 1)
+        obs = PoseObs(pw=lm_pw, uv=frame.uv[kp], ur=frame.ur[kp],
+                      inv_sigma2=inv_sigma2_tab[lv], valid=idx >= 0)
+        res = pose_optimization(Rcw, tcw, obs, cam, bf, rounds=rounds,
+                                iters_per_round=iters, mode=opt_mode)
+        return res, idx, vis
+
+    s1r, s1i, s2r, s2i = schedule
+    res1, _, _ = associate_and_optimize(Rcw0, tcw0, radius_coarse, 8, 75, 0.8,
+                                        s1r, s1i)
+    res2, idx2, vis2 = associate_and_optimize(res1.Rcw, res1.tcw, radius_fine,
+                                              8, 50, 0.8, s2r, s2i)
+    return TrackKernelResult(Rcw=res2.Rcw, tcw=res2.tcw, lm_match=idx2,
+                             inlier=res2.inliers, n_inliers=res2.n_inliers,
+                             in_frustum=vis2)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class Tracker:
+    """Host-side tracking orchestrator (synchronous stereo)."""
+
+    def __init__(self, cam: cm.Camera, bf: float, map_state: MapState,
+                 cfg: Optional[TrackerConfig] = None):
+        self.cam = cam
+        self.bf = float(bf)
+        self.map = map_state
+        self.cfg = cfg or TrackerConfig()
+        self.state = TrackState.NOT_INITIALIZED
+        self.Rcw = np.eye(3, dtype=np.float32)
+        self.tcw = np.zeros(3, np.float32)
+        self.velocity = None         # (dR, dt): Tcw_k o Tcw_{k-1}^-1
+        self._prev_vel_rot = None    # previous frame's dR (rot-accel est)
+        self.last_kf_id = -1
+        self.frames_since_kf = 0
+        self.frame_id = 0
+        self.ref_tracked = 0         # inlier count at last KF creation
+        self.last_new_kf: Optional[int] = None  # KF created this frame
+        # trajectory log: (timestamp, Rcw, tcw, state)
+        self.trajectory = []
+        # (timestamp, ref_kf, R_cr, t_cr, state)
+        self.trajectory_rel = []
+
+    # ------------------------------------------------------------------
+
+    def _local_landmark_slab(self):
+        """Local-map landmarks (covisibility of the last KF + neighbours)
+        in a fixed slab; the reference KF's own landmarks first, then
+        neighbours by covisibility weight."""
+        cap = self.cfg.local_landmark_cap
+        m = self.map
+        if self.last_kf_id >= 0:
+            neigh, _ = m.covisible_keyframes(self.last_kf_id, min_shared=5)
+            kfs = np.concatenate([[self.last_kf_id], neigh[:20]])
+            lm_all = np.concatenate([
+                m.kf_lm_idx[kf][m.kf_kp_valid[kf] & (m.kf_lm_idx[kf] >= 0)]
+                for kf in kfs])
+            _, first_idx = np.unique(lm_all, return_index=True)
+            lm_ids = lm_all[np.sort(first_idx)]
+        else:
+            lm_ids = np.nonzero(m.lm_valid)[0]
+        lm_ids = lm_ids[m.lm_valid[lm_ids]][:cap]
+        M = len(lm_ids)
+        pw = np.zeros((cap, 3), np.float32)
+        desc = np.zeros((cap, 8), np.uint32)
+        level = np.zeros(cap, np.int32)
+        valid = np.zeros(cap, bool)
+        pw[:M] = m.lm_pw[lm_ids]
+        desc[:M] = m.lm_desc[lm_ids]
+        valid[:M] = True
+        if self.cfg.use_predicted_scale:
+            cam_center = -self.Rcw.T @ self.tcw
+            level[:M] = m.predict_scale(lm_ids, cam_center)
+        ids = np.full(cap, -1, np.int64)
+        ids[:M] = lm_ids
+        return pw, desc, level, valid, ids
+
+    def rebase_to_keyframe(self, k: int):
+        """Re-read the current pose from the (BA-corrected) keyframe just
+        created from this frame."""
+        self.Rcw = self.map.kf_Rcw[k].copy()
+        self.tcw = self.map.kf_tcw[k].copy()
+
+    def _predict_pose(self):
+        """Constant-velocity prediction of this frame's pose."""
+        if self.velocity is None:
+            return self.Rcw, self.tcw
+        dR, dt = self.velocity
+        return dR @ self.Rcw, dR @ self.tcw + dt
+
+    # ------------------------------------------------------------------
+
+    def track(self, frame: Frame) -> TrackState:
+        """Main per-frame entry (Tracking::Track)."""
+        self.last_new_kf = None
+        if self.state == TrackState.NOT_INITIALIZED:
+            if int((frame.depth > 0).sum()) >= 100:
+                self._stereo_initialization(frame)
+            else:
+                self._monocular_initialization(frame)
+        else:
+            self._track_frame(frame)
+        self.trajectory.append((float(frame.timestamp), self.Rcw.copy(),
+                                self.tcw.copy(), self.state.name))
+        ref = self.last_kf_id
+        if ref >= 0 and self.map.kf_valid[ref]:
+            R_ref, t_ref = self.map.kf_Rcw[ref], self.map.kf_tcw[ref]
+            R_cr = self.Rcw @ R_ref.T
+            t_cr = self.tcw - R_cr @ t_ref
+            self.trajectory_rel.append(
+                (float(frame.timestamp), int(ref), R_cr.astype(np.float32),
+                 t_cr.astype(np.float32), self.state.name))
+        else:
+            self.trajectory_rel.append(
+                (float(frame.timestamp), -1, self.Rcw.copy(),
+                 self.tcw.copy(), self.state.name))
+        self.frame_id += 1
+        return self.state
+
+    # ------------------------------------------------------------------
+
+    def _stereo_initialization(self, frame: Frame):
+        """Tracking::StereoInitialization -- needs >= 100 stereo-depth kps."""
+        depth = _np(frame.depth)
+        valid = _np(frame.valid)
+        good = valid & (depth > 0) & (depth < self.cfg.th_depth)
+        if good.sum() < 100:
+            good = valid & (depth > 0) & (depth < 2.0 * self.cfg.th_depth)
+        if good.sum() < 100:
+            return
+        self.Rcw = np.eye(3, dtype=np.float32)
+        self.tcw = np.zeros(3, np.float32)
+        kp_idx = np.nonzero(good)[0]
+        uv = _np(frame.uv)[kp_idx]
+        rays = _np(cm.unproject(self.cam, torch.from_numpy(uv)))
+        pw = rays * depth[kp_idx][:, None]
+        lm_ids = self.map.add_landmarks(
+            pw.astype(np.float32), _desc_np(frame)[kp_idx], first_kf=0)
+        lm_idx_full = np.full(valid.shape[0], -1, np.int32)
+        lm_idx_full[kp_idx] = lm_ids
+        k = self._insert_keyframe(frame, lm_idx_full)
+        self.last_kf_id = k
+        self.last_new_kf = k
+        self.ref_tracked = len(kp_idx)
+        self.state = TrackState.OK
+
+    def _monocular_initialization(self, frame: Frame):
+        raise NotImplementedError(
+            "monocular initialization is not ported yet: the first frame "
+            "needs at least 100 keypoints with stereo depth")
+
+    # ------------------------------------------------------------------
+
+    def _run_kernel(self, frame: Frame, slab, R0, t0, coarse_r):
+        pw, desc, level, valid, _ = slab
+        dev = frame.uv.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        return _track_kernel(
+            torch.as_tensor(np.asarray(R0, np.float32), **f32),
+            torch.as_tensor(np.asarray(t0, np.float32), **f32),
+            torch.from_numpy(pw).to(dev), desc_to_tensor(desc, dev),
+            torch.from_numpy(level).to(dev), torch.from_numpy(valid).to(dev),
+            frame,
+            torch.from_numpy(self.map.inv_sigma2).to(dev),
+            torch.from_numpy(self.map.level_scales.astype(np.float32)).to(dev),
+            torch.tensor(coarse_r, **f32),
+            torch.tensor(self.cfg.match_radius_fine, **f32),
+            self.bf, self.cam,
+            schedule=self.cfg.schedule, opt_mode=self.cfg.opt_mode)
+
+    def _track_frame(self, frame: Frame):
+        with self.map.lock:
+            slab = self._local_landmark_slab()
+        lm_ids = slab[4]
+        R0, t0 = self._predict_pose()
+        coarse_r = self.cfg.match_radius_coarse
+        if self.velocity is not None and self._prev_vel_rot is not None:
+            dacc = self.velocity[0] @ self._prev_vel_rot.T
+            cosang = np.clip((np.trace(dacc) - 1.0) / 2.0, -1.0, 1.0)
+            ang = float(np.arccos(cosang))
+            coarse_r = min(
+                coarse_r + self.cfg.adaptive_radius_gain * self.cam.fx * ang,
+                self.cfg.adaptive_radius_max)
+        res = self._run_kernel(frame, slab, R0, t0, coarse_r)
+        n_inl = int(res.n_inliers)
+        if n_inl < self.cfg.min_inliers_ok:
+            # Wide-radius retries: from the prediction, then from the last
+            # known-good pose.
+            for Rr, tr_ in [(R0, t0), (self.Rcw, self.tcw)]:
+                res = self._run_kernel(frame, slab, Rr, tr_,
+                                       self.cfg.lost_retry_radius)
+                n_inl = int(res.n_inliers)
+                if n_inl >= self.cfg.min_inliers_ok:
+                    break
+        if n_inl < self.cfg.min_inliers_ok:
+            self.state = TrackState.LOST
+            self.velocity = None
+            self._prev_vel_rot = None
+            return
+        R_prev, t_prev = self.Rcw.copy(), self.tcw.copy()
+        self.Rcw = normalize_rotation_np(_np(res.Rcw))
+        self.tcw = _np(res.tcw)
+        dR = self.Rcw @ R_prev.T
+        dt = self.tcw - dR @ t_prev
+        self._prev_vel_rot = self.velocity[0] \
+            if self.velocity is not None else None
+        self.velocity = (dR.astype(np.float32), dt.astype(np.float32))
+        self.state = TrackState.OK
+        self.frames_since_kf += 1
+        in_frustum = _np(res.in_frustum)
+        inlier = _np(res.inlier)
+        vis_ids = lm_ids[in_frustum & (lm_ids >= 0)]
+        fnd_ids = lm_ids[inlier & (lm_ids >= 0)]
+        with self.map.lock:
+            np.add.at(self.map.lm_visible, vis_ids, 1)
+            np.add.at(self.map.lm_found, fnd_ids, 1)
+            if self._need_new_keyframe(n_inl):
+                lm_idx_full = self._frame_landmark_assoc(
+                    _np(res.lm_match), inlier, lm_ids, _np(frame.valid))
+                k = self._insert_keyframe(frame, lm_idx_full)
+                self.last_kf_id = k
+                self.last_new_kf = k
+                self.ref_tracked = n_inl
+                self.frames_since_kf = 0
+
+    # ------------------------------------------------------------------
+
+    def _frame_landmark_assoc(self, lm_match, inlier, lm_ids, kp_valid):
+        """[N] landmark id per keypoint from the track result."""
+        out = np.full(kp_valid.shape[0], -1, np.int32)
+        ok = (lm_match >= 0) & inlier & (lm_ids >= 0)
+        ok &= self.map.lm_valid[np.clip(lm_ids, 0, None)]
+        out[lm_match[ok]] = lm_ids[ok]
+        return out
+
+    def _need_new_keyframe(self, n_inliers: int) -> bool:
+        """NeedNewKeyFrame: 90% rule + min/max frame intervals."""
+        if self.frames_since_kf < self.cfg.kf_min_interval:
+            return False
+        if self.frames_since_kf >= self.cfg.kf_max_interval:
+            return True
+        return n_inliers < self.cfg.kf_tracked_ratio * max(self.ref_tracked, 1)
+
+    def _insert_keyframe(self, frame: Frame, lm_idx_full: np.ndarray) -> int:
+        f_uv = _np(frame.uv)
+        return self.map.add_keyframe(
+            Rcw=self.Rcw, tcw=self.tcw, timestamp=float(frame.timestamp),
+            frame_id=self.frame_id, uv=f_uv, level=_np(frame.level),
+            desc=_desc_np(frame), ur=_np(frame.ur), depth=_np(frame.depth),
+            kp_valid=_np(frame.valid), lm_idx=lm_idx_full)
+
+
+def _desc_np(frame: Frame) -> np.ndarray:
+    """Frame descriptors as the map's uint32 words."""
+    return _np(frame.desc).view(np.uint32)

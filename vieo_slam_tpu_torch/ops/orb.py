@@ -1,0 +1,316 @@
+"""ORB feature extraction in PyTorch: pyramid, FAST, orientation, rBRIEF.
+
+Port of vieo_slam_tpu/ops/orb.py (the extraction path the TPU runs):
+whole-image tensor math with fixed shapes, a deterministic per-cell
+top-k + global top-N keypoint selection, and the fused keypoint tail (one
+53x53 raw patch per keypoint, IC angle from its centre, in-patch 7-tap
+blur, rotated-BRIEF taps).  The image-wide FAST/NMS/blend step runs in
+kernel B1 (ops/cuda_fast.py) and the patch gathers in kernel B2
+(ops/cuda_gather.py) when the image lies on the GPU.
+
+Descriptors are [N, 8] int32 tensors carrying the bits of the JAX
+package's uint32 words.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .cuda_fast import FAST_CIRCLE, fast_nms_blend, fast_score_maps, nms3  # noqa: F401
+from .cuda_gather import gather_patches
+
+PATCH_RADIUS = 15          # IC_Angle circular patch
+DESC_BITS = 256
+DESC_WORDS = DESC_BITS // 32
+
+
+def _make_brief_pattern(seed: int = 7) -> np.ndarray:
+    """256 (p, q) point pairs for rBRIEF, i.i.d. N(0, (patch/5)^2) clipped
+    to the 31x31 patch. Returns int32 [256, 2, 2] as ((x1, y1), (x2, y2))."""
+    rng = np.random.RandomState(seed)
+    sigma = (2 * PATCH_RADIUS + 1) / 5.0
+    pts = rng.randn(DESC_BITS, 2, 2) * sigma
+    pts = np.clip(np.round(pts), -PATCH_RADIUS + 1, PATCH_RADIUS - 1)
+    return pts.astype(np.int32)
+
+
+BRIEF_PATTERN = _make_brief_pattern()
+
+
+def _disc_mask(radius: int) -> np.ndarray:
+    """Circular patch mask (the reference's umax per-row extents)."""
+    yy, xx = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    return (xx * xx + yy * yy <= radius * radius).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class OrbConfig:
+    n_features: int = 1200
+    n_levels: int = 8
+    scale_factor: float = 1.2
+    fast_threshold: float = 20.0
+    fast_min_threshold: float = 7.0
+    cell_size: int = 32          # spatial-binning cell for distribution
+    cell_topk: int = 4           # candidates kept per cell before global topk
+    border: int = 19             # valid-keypoint border
+
+    @functools.cached_property
+    def level_scales(self) -> np.ndarray:
+        return self.scale_factor ** np.arange(self.n_levels)
+
+    @functools.cached_property
+    def features_per_level(self) -> np.ndarray:
+        """Geometric allocation over levels (ORBextractor ctor logic)."""
+        inv = 1.0 / self.scale_factor
+        w = inv ** np.arange(self.n_levels)
+        n = np.floor(self.n_features * w / w.sum()).astype(np.int32)
+        n[-1] = max(self.n_features - int(n[:-1].sum()), 0)
+        return n
+
+
+class OrbFeatures(NamedTuple):
+    """Fixed-capacity extraction result (capacity N = cfg.n_features).
+
+    uv [N, 2] f32 level-0 pixels (x, y); level [N] int32; angle [N] f32;
+    score [N] f32; desc [N, 8] int32 (bits of 256-bit rBRIEF); valid [N].
+    """
+
+    uv: torch.Tensor
+    level: torch.Tensor
+    angle: torch.Tensor
+    score: torch.Tensor
+    desc: torch.Tensor
+    valid: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Pyramid
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[in, out] antialiased triangle-kernel resampling weights -- the
+    weight matrix of jax.image.resize(..., "bilinear") when it downsamples
+    (scale_and_translate with kernel width scaled by 1/scale), computed in
+    f64 and rounded to f32."""
+    scale = out_size / in_size
+    inv_scale = 1.0 / scale
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample_f[None, :]
+               - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - np.abs(x))
+    tot = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(tot != 0, tot, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+def _resize(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """Antialiased bilinear downsample [H, W] -> [nh, nw] as two f32
+    matrix products, rows first, as jax.image.resize contracts them."""
+    h, w = img.shape
+    out = img
+    if nh != h:
+        wh = torch.from_numpy(_resize_weights(h, nh)).to(img.device)
+        out = wh.T @ out
+    if nw != w:
+        ww = torch.from_numpy(_resize_weights(w, nw)).to(img.device)
+        out = out @ ww
+    return out
+
+
+def build_pyramid(img: torch.Tensor, cfg: OrbConfig) -> list[torch.Tensor]:
+    """[H, W] f32 -> per-level images; each level resizes the previous one."""
+    h, w = img.shape
+    levels = [img]
+    for lv in range(1, cfg.n_levels):
+        s = float(cfg.level_scales[lv])
+        levels.append(_resize(levels[-1], round(h / s), round(w / s)))
+    return levels
+
+
+# ---------------------------------------------------------------------------
+# FAST score + selection
+# ---------------------------------------------------------------------------
+
+
+def _blended_score(im: torch.Tensor, cfg: OrbConfig) -> torch.Tensor:
+    """Strict/permissive blended, NMS'd FAST score map (selection input):
+    iniThFAST winners boosted above every minThFAST score (kernel B1)."""
+    return fast_nms_blend(im, cfg.fast_threshold, cfg.fast_min_threshold)
+
+
+def _stable_topk(x: torch.Tensor, k: int):
+    """top-k along the last dim, ties to the lowest index (lax.top_k)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def select_keypoints(score: torch.Tensor, n_keep: int, cfg: OrbConfig):
+    """Deterministic spatially-distributed top-N: per-cell top-k, then a
+    global top-N by response.  Returns (uv [n, 2] int32 in-level coords,
+    score [n], valid [n])."""
+    h, w = score.shape
+    c = cfg.cell_size
+    gy, gx = -(-h // c), -(-w // c)
+    padded = torch.nn.functional.pad(score, (0, gx * c - w, 0, gy * c - h))
+    cells = padded.reshape(gy, c, gx, c).permute(0, 2, 1, 3).reshape(
+        gy * gx, c * c)
+    k = min(cfg.cell_topk, c * c)
+    cell_scores, cell_idx = _stable_topk(cells, k)            # [G, k]
+    g = torch.arange(gy * gx, device=score.device)[:, None]
+    ys = (g // gx) * c + cell_idx // c
+    xs = (g % gx) * c + cell_idx % c
+    flat_scores = cell_scores.reshape(-1)
+    n_keep = min(n_keep, flat_scores.shape[0])
+    top_scores, top_i = _stable_topk(flat_scores, n_keep)
+    uv = torch.stack([xs.reshape(-1)[top_i], ys.reshape(-1)[top_i]],
+                     dim=-1).int()
+    b = cfg.border
+    valid = ((top_scores > 0)
+             & (uv[:, 0] >= b) & (uv[:, 0] < w - b)
+             & (uv[:, 1] >= b) & (uv[:, 1] < h - b))
+    return uv, top_scores, valid
+
+
+# ---------------------------------------------------------------------------
+# Orientation + descriptors (fused tail)
+# ---------------------------------------------------------------------------
+
+# Rotation can push BRIEF taps to PATCH_RADIUS*sqrt(2): the descriptor
+# patch must cover that.
+BRIEF_R = int(math.ceil(PATCH_RADIUS * math.sqrt(2.0))) + 1   # 23
+_BLUR_HALO = 3
+_TAIL_R = BRIEF_R + _BLUR_HALO           # 26 -> 53x53 raw patch
+
+
+def ic_angle(patches: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation over the circular patch
+    [N, 31, 31] -> radians [N]."""
+    radius = (patches.shape[-1] - 1) // 2
+    mask = torch.from_numpy(_disc_mask(radius)).to(patches.device)
+    coords = torch.arange(-radius, radius + 1, dtype=patches.dtype,
+                          device=patches.device)
+    weighted = patches * mask
+    # Column sums then the x moment, row sums then the y moment: the
+    # order in which the JAX package's einsums reduce.
+    m10 = weighted.sum(dim=1) @ coords
+    m01 = weighted.sum(dim=2) @ coords
+    return torch.atan2(m01, m10)
+
+
+def _gauss7(sigma: float = 2.0) -> list[float]:
+    x = np.arange(-3, 4, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+    return [float(v) for v in k.astype(np.float32)]
+
+
+def _blur7_patch(patches: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """Valid-region separable 7x7 Gaussian over [N, D, D] -> [N, D-6, D-6]."""
+    k = _gauss7(sigma)
+    dd = patches.shape[-1]
+    h = sum(patches[:, :, i:i + dd - 6] * k[i] for i in range(7))
+    return sum(h[:, i:i + dd - 6, :] * k[i] for i in range(7))
+
+
+def brief_from_patches(patches: torch.Tensor,
+                       angles: torch.Tensor) -> torch.Tensor:
+    """Rotated-BRIEF bits from blurred patches [N, 47, 47] -> [N, 8] int32."""
+    r = BRIEF_R
+    d = 2 * r + 1
+    assert patches.shape[-1] == d
+    dev = patches.device
+    pat = torch.from_numpy(BRIEF_PATTERN.astype(np.float32)).to(dev)
+    ca, sa = torch.cos(angles), torch.sin(angles)
+    px, py = pat[..., 0], pat[..., 1]                        # [256, 2]
+    rx = torch.round(ca[:, None, None] * px - sa[:, None, None] * py).long()
+    ry = torch.round(sa[:, None, None] * px + ca[:, None, None] * py).long()
+    iy = (ry + r).clamp(0, d - 1)
+    ix = (rx + r).clamp(0, d - 1)
+    n = patches.shape[0]
+    flat = patches.reshape(n, -1)
+    idx = (iy * d + ix).reshape(n, -1)
+    vals = torch.gather(flat, 1, idx).reshape(n, DESC_BITS, 2)
+    bits = (vals[..., 0] < vals[..., 1]).long()              # [N, 256]
+    bits = bits.reshape(-1, DESC_WORDS, 32)
+    shifts = torch.arange(32, device=dev)
+    words = (bits << shifts).sum(dim=-1)                     # [N, 8] < 2^32
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()
+
+
+def _tail_from_big(big: torch.Tensor):
+    """(angle, desc) from pre-gathered [N, 53, 53] raw patches."""
+    c0 = _TAIL_R - PATCH_RADIUS
+    ang = ic_angle(big[:, c0:c0 + 2 * PATCH_RADIUS + 1,
+                       c0:c0 + 2 * PATCH_RADIUS + 1])
+    blurp = _blur7_patch(big)                                # [N, 47, 47]
+    return ang, brief_from_patches(blurp, ang)
+
+
+def extract_tail_fused_multi(level_imgs: list, level_uvs: list):
+    """Per-level 53x53 patch gathers (kernel B2, one launch per level),
+    then one concatenated blur + IC-angle + BRIEF pass over all levels.
+    Returns [(angle, desc), ...] per level."""
+    bigs = [gather_patches(im, uv, _TAIL_R)
+            for im, uv in zip(level_imgs, level_uvs)]
+    ang, desc = _tail_from_big(torch.cat(bigs))
+    out = []
+    o = 0
+    for b in bigs:
+        n = b.shape[0]
+        out.append((ang[o:o + n], desc[o:o + n]))
+        o += n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Full extraction
+# ---------------------------------------------------------------------------
+
+
+def extract_orb(img, cfg: OrbConfig, device=None) -> OrbFeatures:
+    """Full ORB pipeline on one grayscale image [H, W] (f32 tensor or numpy).
+
+    Runs on `device` (default: the GPU; raises when CUDA is missing).  A
+    tensor already on `device` is used as it is."""
+    dev = resolve_device(device)
+    img = torch.as_tensor(img, dtype=torch.float32).to(dev)
+    pyramid = build_pyramid(img, cfg)
+    per_level = cfg.features_per_level
+    levels = [(lv, pyramid[lv]) for lv in range(len(pyramid))
+              if int(per_level[lv]) > 0]
+    sels = []
+    for lv, im in levels:
+        n_l = int(per_level[lv])
+        uv, s, valid = select_keypoints(_blended_score(im, cfg), n_l, cfg)
+        if uv.shape[0] < n_l:  # tiny levels: pad capacity
+            padn = n_l - uv.shape[0]
+            uv = torch.nn.functional.pad(uv, (0, 0, 0, padn))
+            s = torch.nn.functional.pad(s, (0, padn))
+            valid = torch.nn.functional.pad(valid, (0, padn))
+        sels.append((uv, s, valid))
+    tails = extract_tail_fused_multi([im for _, im in levels],
+                                     [uv for uv, _, _ in sels])
+    uts, lvls, angs, scs, descs, vals = [], [], [], [], [], []
+    for (lv, _), (uv, s, valid), (ang, desc) in zip(levels, sels, tails):
+        n_l = int(per_level[lv])
+        uts.append(uv.float() * float(cfg.level_scales[lv]))
+        lvls.append(torch.full((n_l,), lv, dtype=torch.int32, device=dev))
+        angs.append(ang)
+        scs.append(torch.where(valid, s, torch.zeros_like(s)))
+        descs.append(desc)
+        vals.append(valid)
+    return OrbFeatures(
+        uv=torch.cat(uts), level=torch.cat(lvls), angle=torch.cat(angs),
+        score=torch.cat(scs), desc=torch.cat(descs), valid=torch.cat(vals))

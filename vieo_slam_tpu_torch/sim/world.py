@@ -1,0 +1,121 @@
+"""Synthetic worlds for end-to-end runs of the image pipeline.
+
+Port of the pixel-rendering part of vieo_slam_tpu/sim/world.py: a field
+of landmarks with fixed texture stamps, rendered through a pinhole camera
+into grayscale stereo pairs, plus the circle trajectory.  Numpy, with the
+port's own `cameras.project`; the same seed gives the same world and the
+same images as the JAX package's renderer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..cameras import models as cm
+
+
+@dataclasses.dataclass
+class WorldConfig:
+    n_landmarks: int = 3000
+    extent: tuple = (20.0, 12.0, 6.0)   # x, y, z box size
+    seed: int = 0
+
+
+class SyntheticWorld:
+    """Landmark field + descriptor bank + texture stamps."""
+
+    def __init__(self, cfg: WorldConfig = WorldConfig()):
+        self.cfg = cfg
+        rng = np.random.RandomState(cfg.seed)
+        e = np.asarray(cfg.extent)
+        n = cfg.n_landmarks
+        pts = rng.rand(n, 3) * e - e / 2
+        face = rng.randint(0, 4, n)
+        pts[face == 0, 0] = -e[0] / 2     # walls
+        pts[face == 1, 0] = e[0] / 2
+        pts[face == 2, 1] = -e[1] / 2
+        pts[face == 3, 1] = e[1] / 2
+        self.pw = pts.astype(np.float32)
+        # The JAX package's world draws its descriptor bank next, with the
+        # same generator, so the same seed gives the same descriptors.
+        self.desc = rng.randint(0, 2 ** 32, (n, 8), np.uint64).astype(
+            np.uint32)
+        self._patches = None
+
+    def _landmark_patches(self, size: int = 12):
+        """Per-landmark fixed texture stamp: a 2x-upsampled random block
+        pattern, constant across views."""
+        if self._patches is None:
+            rng = np.random.RandomState(self.cfg.seed + 7777)
+            n = self.cfg.n_landmarks
+            coarse = rng.randint(30, 226, (n, size // 2, size // 2))
+            self._patches = np.repeat(
+                np.repeat(coarse, 2, axis=1), 2, axis=2).astype(np.float32)
+        return self._patches
+
+    def render_view(self, cam: cm.Camera, Rcw, tcw, *, bg_level: float = 96.0,
+                    min_depth: float = 0.2) -> np.ndarray:
+        """Grayscale [H, W] f32 view: each visible landmark stamps its
+        texture at its projected sub-pixel position (bilinear shift),
+        far to near, over a flat background."""
+        H, W = cam.height, cam.width
+        img = np.full((H, W), bg_level, np.float32)
+        pc = self.pw @ np.asarray(Rcw).T + np.asarray(tcw)
+        uv = cm.project(cam, torch.from_numpy(
+            np.ascontiguousarray(pc, np.float32))).numpy()
+        patches = self._landmark_patches()
+        P = patches.shape[1]
+        h = P // 2
+        vis = ((pc[:, 2] > min_depth)
+               & (uv[:, 0] >= h + 1) & (uv[:, 0] < W - h - 2)
+               & (uv[:, 1] >= h + 1) & (uv[:, 1] < H - h - 2))
+        order = np.argsort(-pc[vis, 2], kind="stable")
+        for li in np.nonzero(vis)[0][order]:
+            u, v = uv[li]
+            iu, iv = int(np.floor(u)), int(np.floor(v))
+            fu, fv = u - iu, v - iv
+            pp = np.pad(patches[li], 1, mode="edge")
+            p00 = pp[0:P, 0:P]
+            p01 = pp[0:P, 1:P + 1]
+            p10 = pp[1:P + 1, 0:P]
+            p11 = pp[1:P + 1, 1:P + 1]
+            sh = ((1 - fv) * (1 - fu) * p11 + (1 - fv) * fu * p10
+                  + fv * (1 - fu) * p01 + fv * fu * p00)
+            img[iv - h + 1: iv + P - h + 1, iu - h + 1: iu + P - h + 1] = sh
+        return np.clip(img, 0.0, 255.0).astype(np.float32)
+
+    def render_stereo(self, cam: cm.Camera, Rcw, tcw, baseline: float, **kw):
+        """Rectified stereo pair: right camera displaced +baseline along
+        the left camera's x axis."""
+        left = self.render_view(cam, Rcw, tcw, **kw)
+        tcw_r = np.asarray(tcw) - np.asarray([baseline, 0.0, 0.0], np.float32)
+        return left, self.render_view(cam, Rcw, tcw_r, **kw)
+
+
+def circle_trajectory(t, radius=4.0, omega=0.3, z=0.0, look_outward=False):
+    """Camera circling the origin looking inward (or outward).
+
+    Returns (Rwc [T, 3, 3], twc [T, 3]) world-from-camera, f32."""
+    t = np.asarray(t, np.float64)
+    ang = omega * t
+    pos = np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                    np.full_like(ang, z)], -1)
+    fwd = -np.stack([pos[:, 0], pos[:, 1], np.zeros_like(ang)], -1)
+    fwd /= np.linalg.norm(fwd, axis=-1, keepdims=True)
+    if look_outward:
+        fwd = -fwd
+    up = np.tile([0.0, 0.0, -1.0], (len(t), 1))
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right, axis=-1, keepdims=True)
+    down = np.cross(fwd, right)
+    Rwc = np.stack([right, down, fwd], axis=-1)  # columns = cam axes
+    return Rwc.astype(np.float32), pos.astype(np.float32)
+
+
+def trajectory_to_tcw(Rwc, twc):
+    Rcw = np.swapaxes(Rwc, -1, -2)
+    tcw = -np.einsum("tij,tj->ti", Rcw, twc)
+    return Rcw.astype(np.float32), tcw.astype(np.float32)

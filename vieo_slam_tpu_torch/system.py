@@ -1,0 +1,101 @@
+"""System facade: the public entry point of the port.
+
+Port of the synchronous stereo part of vieo_slam_tpu/system.py: tracking
+runs per frame; local mapping runs at keyframe insertion, inline; the
+tracker then rebases its pose on the corrected keyframe.  The async
+mapping worker, global BA, loop closing and map save/load come with their
+slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .backend.local_mapping import LocalMapper, LocalMappingConfig
+from .cameras import models as cm
+from .frontend.frame import Frame
+from .frontend.tracking import Tracker, TrackerConfig, TrackState  # noqa: F401
+from .map.map_state import MapConfig, MapState
+from .utils.device import resolve_device
+from .utils.metrics import metrics
+
+
+@dataclasses.dataclass
+class SystemConfig:
+    map: MapConfig = dataclasses.field(default_factory=MapConfig)
+    tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
+    mapper: LocalMappingConfig = dataclasses.field(
+        default_factory=LocalMappingConfig)
+
+
+class System:
+    """Synchronous stereo SLAM on one device (default: the GPU)."""
+
+    def __init__(self, cam: cm.Camera, bf: float,
+                 cfg: Optional[SystemConfig] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg or SystemConfig()
+        self.cam = cam
+        self.bf = float(bf)
+        self.map = MapState(self.cfg.map)
+        self.tracker = Tracker(cam, bf, self.map, self.cfg.tracker)
+        self.mapper = LocalMapper(cam, bf, self.map, self.cfg.mapper,
+                                  device=self.device)
+
+    def track_frame(self, frame: Frame) -> TrackState:
+        """Track one Frame (built by frontend.frame on this device)."""
+        if frame.uv.device.type != self.device.type:
+            raise ValueError(f"frame is on {frame.uv.device}, the system on "
+                             f"{self.device}")
+        with metrics.timer("frame"):
+            with metrics.timer("track"):
+                state = self.tracker.track(frame)
+            new_kf = self.tracker.last_new_kf
+            if new_kf is not None:
+                metrics.count("keyframes")
+                with metrics.timer("local_mapping"):
+                    self.mapper.process_keyframe(new_kf)
+                # Local BA may have moved the new KF: rebase the tracker.
+                self.tracker.rebase_to_keyframe(new_kf)
+        metrics.set_gauge("map_keyframes", int(self.map.n_keyframes()))
+        metrics.set_gauge("map_landmarks", int(self.map.n_landmarks()))
+        metrics.count(f"state_{state.name}")
+        return state
+
+    def trajectory(self, optimized: bool = True):
+        """Per-frame camera trajectory [(t, Rcw, tcw, state)]; optimized
+        poses compose each frame's pose relative to its reference keyframe
+        with that keyframe's current pose."""
+        if not optimized or not self.tracker.trajectory_rel:
+            return self.tracker.trajectory
+        out = []
+        m = self.map
+        for t, ref, R_cr, t_cr, state in self.tracker.trajectory_rel:
+            if ref < 0:
+                out.append((t, R_cr, t_cr, state))
+                continue
+            R_ref, t_ref = m.kf_Rcw[ref], m.kf_tcw[ref]
+            out.append((t, R_cr @ R_ref, R_cr @ t_ref + t_cr, state))
+        return out
+
+    def trajectory_tum(self, optimized: bool = True) -> str:
+        """TUM format: t x y z qx qy qz qw of Twc."""
+        from .math import lie
+        lines = []
+        for t, Rcw, tcw, _ in self.trajectory(optimized):
+            Rwc = Rcw.T
+            twc = -Rwc @ tcw
+            q = lie.quat_from_rotmat(torch.from_numpy(
+                np.ascontiguousarray(Rwc))).numpy()
+            lines.append(
+                f"{t:.6f} {twc[0]:.7f} {twc[1]:.7f} {twc[2]:.7f} "
+                f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}")
+        return "\n".join(lines) + "\n"
+
+    def metrics_report(self) -> dict:
+        """Per-stage timing stats + event counters."""
+        return metrics.report()
