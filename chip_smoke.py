@@ -10,15 +10,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
      sm_90a, one process per source, all in parallel).
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the card, at the shapes the full-width main path gives it (B1 and
-     B2 bit-exact, B3 and B4 identical integers), timed with CUDA events.
+     B2 bit-exact, B3 and B4 identical integers, B5 identical descriptor
+     bits and angles within 1e-6 rad), a call timed with CUDA events and
+     the kernel alone read from torch.profiler.
   4. known configuration: the 640x480 / 600-feature / 4-level stereo
      sequence of tests/test_image_e2e.py, 40 frames through
      build_stereo_frame + System.track_frame; must hold that test's bars
      (0 LOST, ATE RMSE < 0.02 m, >= 5 keyframes, > 200 landmarks).
   5. full width (the main path): 752x480, 1200 features, 8 levels, a
-     4096-landmark tracking slab, 30 frames.  Launch counters are zeroed
-     just before and read just after; every kernel must have run; 0 LOST.
-  6. profile: the last 6 frames of a 14-frame full-width run under
+     4096-landmark tracking slab, 30 stereo frames.  Launch counters are
+     zeroed just before and read just after; kernels B1-B4 must have run;
+     0 LOST.
+  6. RGB-D full width: the same world, trajectory and sizes with the depth
+     map of render_view(return_depth=True) and the tail kernel B5 on, 30
+     frames.  Counters zeroed before and read after: B5 must have run once
+     per frame, B1, B3 and B4 at all; 0 LOST, ATE RMSE < 0.02 m, >= 5
+     keyframes, > 200 landmarks.  Then the extraction time of these images
+     with the tail kernel on and off.
+  7. mono known configuration: the monocular row of
+     examples/evaluate_ntimes.py (640x480, 1000 features, 4 levels, 2200
+     landmarks, circle at 0.35 rad/s, 60 frames, photometric noise and
+     brightness drift), tail kernel on.  Counters zeroed before and read
+     after (B5 once per frame; B1, B3, B4 at all); the two-view
+     initialization must succeed, no later frame be LOST and the
+     scale-aligned ATE RMSE stay under 0.02 m.
+  8. profile: the last 6 frames of a 14-frame full-width stereo run under
      torch.profiler -- device busy share, device ops and host waits per
      frame, the device time of each stage and the top device entries.
 
@@ -40,7 +56,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM3
-# bandwidth, and the f32 rate outside the tensor cores.  None of the four
+# bandwidth, and the f32 rate outside the tensor cores.  None of the five
 # kernels uses the tensor cores; their 32-bit integer ops are counted
 # against the same 67 T/s, which the card's int32 rate does not exceed.
 PEAK_BYTES_S = 3.35e12
@@ -48,6 +64,11 @@ PEAK_OPS_S = 67e12
 
 BASELINE = 0.2
 WORLD = dict(n_landmarks=1800, seed=3, extent=(6.0, 4.5, 3.0))
+# The world, rotation rate and photometric hardening of the monocular row
+# of examples/evaluate_ntimes.py.
+MONO_WORLD = dict(n_landmarks=2200, seed=4, extent=(6.0, 4.5, 3.0))
+MONO_OMEGA = 0.35
+NOISE_SIGMA = 2.0
 
 
 def log(msg):
@@ -91,6 +112,25 @@ def time_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
+def device_ms(torch, fn, kernel, reps=10):
+    """ms per fn() call that the card spends inside the CUDA kernels whose
+    name contains `kernel`, read from torch.profiler (time_ms brackets the
+    wrapper's host work as well); None where the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate."""
@@ -112,6 +152,11 @@ HAMMING_OPS = 27
 # Per pair of the projection window + level gate: 2 sub, 2 mul, add,
 # compare, level sub + abs + compare, 2 ands.
 WINDOW_OPS = 11
+# Per keypoint of the tail: two moments over the 709 disc pixels (multiply
+# and add each); the separable 7-tap blur, 7 multiplies and 6 adds for each
+# of the 53x47 row outputs and 47x47 column outputs; per BRIEF pair two
+# rotated points (4 multiplies, 2 adds, 2 roundings each) and the compare.
+TAIL_OPS_PER_KP = 4 * 709 + 13 * (53 * 47 + 47 * 47) + 256 * 17
 
 
 # ---------------------------------------------------------------------------
@@ -119,18 +164,19 @@ WINDOW_OPS = 11
 # ---------------------------------------------------------------------------
 
 
-def scene(n_frames, width):
-    """The test_image_e2e world and outward circle, with a pinhole camera
-    of the given width (focal length scaled with it, height 480)."""
+def scene(n_frames, width, world_cfg=None, omega=0.25):
+    """The test_image_e2e world (or `world_cfg`) and an outward circle at
+    `omega` rad/s, with a pinhole camera of the given width (focal length
+    scaled with it, height 480)."""
     from vieo_slam_tpu_torch.cameras import models as cm
     from vieo_slam_tpu_torch.sim import world as sim
 
     s = width / 640.0
     cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0, width,
                           480)
-    world = sim.SyntheticWorld(sim.WorldConfig(**WORLD))
+    world = sim.SyntheticWorld(sim.WorldConfig(**(world_cfg or WORLD)))
     ts = np.arange(n_frames) * 0.1
-    Rwc, twc = sim.circle_trajectory(ts, radius=1.0, omega=0.25,
+    Rwc, twc = sim.circle_trajectory(ts, radius=1.0, omega=omega,
                                      look_outward=True)
     Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
     return cam, cam.fx * BASELINE, world, ts, Rcw, tcw, twc
@@ -143,7 +189,7 @@ def scene(n_frames, width):
 
 def check_kernels(torch, dev):
     from vieo_slam_tpu_torch.ops import cuda_fast, cuda_gather, cuda_matching
-    from vieo_slam_tpu_torch.ops import matching, orb
+    from vieo_slam_tpu_torch.ops import cuda_tail, matching, orb
 
     cam, bf, world, ts, Rcw, tcw, _ = scene(1, 752)
     cfg = orb.OrbConfig(n_features=1200, n_levels=8)
@@ -165,6 +211,8 @@ def check_kernels(torch, dev):
         err = max(err, float((got - want).abs().max()))
     px = sum(im.numel() for im in pyramid)
     rows["fast_nms_blend"] = dict(
+        device_ms=device_ms(torch, lambda: [cuda_fast.fast_nms_blend(
+            im, *th) for im in pyramid], "fast_nms_blend_kernel"),
         ms=time_ms(torch, lambda: [cuda_fast.fast_nms_blend(im, *th)
                                    for im in pyramid]),
         plain_ms=time_ms(torch, lambda: [cuda_fast.fast_nms_blend_plain(
@@ -190,6 +238,9 @@ def check_kernels(torch, dev):
             fail(f"B2 differs from its plain version at {tuple(im.shape)}")
     n_kp = sum(int(c.shape[0]) for c in centers)
     rows["gather_patches"] = dict(
+        device_ms=device_ms(torch, lambda: [cuda_gather.gather_patches(
+            im, c, r) for im, c in zip(pyramid, centers)],
+            "gather_patches_kernel"),
         ms=time_ms(torch, lambda: [cuda_gather.gather_patches(im, c, r)
                                    for im, c in zip(pyramid, centers)]),
         plain_ms=time_ms(torch, lambda: [cuda_gather.gather_patches_plain(
@@ -214,6 +265,8 @@ def check_kernels(torch, dev):
         fail(f"B3 differs from its plain version (max |diff| {err})")
     cand = int(mask.sum())
     rows["fused_best2"] = dict(
+        device_ms=device_ms(torch, lambda: cuda_matching.fused_best2(
+            fl.desc, fr.desc, mask), "best2_kernel"),
         ms=time_ms(torch, lambda: cuda_matching.fused_best2(
             fl.desc, fr.desc, mask)),
         plain_ms=time_ms(torch, lambda: cuda_matching.fused_best2_plain(
@@ -248,6 +301,8 @@ def check_kernels(torch, dev):
         fail(f"B4 differs from its plain version (max |diff| {err})")
     cand = int(cuda_matching.projection_mask(*args[2:]).sum())
     rows["fused_projection_best2"] = dict(
+        device_ms=device_ms(torch, lambda: cuda_matching.
+                            fused_projection_best2(*args), "best2_kernel"),
         ms=time_ms(torch, lambda: cuda_matching.fused_projection_best2(
             *args)),
         plain_ms=time_ms(torch, lambda: cuda_matching.
@@ -256,39 +311,106 @@ def check_kernels(torch, dev):
         bound=bound(32 * (LC + N) + 20 * LC + 16 * N + 4 * (3 * LC + N),
                     WINDOW_OPS * LC * N + HAMMING_OPS * cand),
         shapes=[LC, N], candidates=cand)
+
+    # B5: the whole tail of this image in one launch -- the 8 levels and
+    # the 1200 centers B2 was given above (selected keypoints, four of
+    # every level moved onto the image border).
+    got = cuda_tail.tail_fused_multi(pyramid, centers)
+    want = cuda_tail.tail_fused_multi_plain(pyramid, centers)
+    ang_err, flips = 0.0, 0
+    for (ang, desc), (ang_p, desc_p) in zip(got, want):
+        ang_err = max(ang_err, float((ang - ang_p).abs().max()))
+        x = (desc ^ desc_p).cpu().numpy().view(np.uint8)
+        flips += int(np.unpackbits(x).sum())
+    if ang_err > 1e-6 or flips:
+        fail(f"B5 differs from its plain version: max angle difference "
+             f"{ang_err:.3g} rad (bound 1e-6), {flips} of {n_kp * 256} "
+             f"descriptor bits (bound 0)")
+    # The path B5 replaces: 8 launches of B2 and the PyTorch tail.
+    replaced_ms = time_ms(torch, lambda: orb.extract_tail_fused_multi(
+        pyramid, centers), reps=10)
+    rows["tail_fused"] = dict(
+        device_ms=device_ms(torch, lambda: cuda_tail.tail_fused_multi(
+            pyramid, centers), "tail_fused_kernel"),
+        ms=time_ms(torch, lambda: cuda_tail.tail_fused_multi(pyramid,
+                                                             centers)),
+        plain_ms=time_ms(torch, lambda: cuda_tail.tail_fused_multi_plain(
+            pyramid, centers), reps=10),
+        max_abs_err=ang_err, replaced_ms=replaced_ms, bit_flips=flips,
+        bound=bound(4 * px + 8 * n_kp + 16 * 256 + 36 * n_kp,
+                    TAIL_OPS_PER_KP * n_kp),
+        shapes=[n_kp, [tuple(im.shape) for im in pyramid]])
     return rows
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: end to end
+# Phases 4 to 8: end to end
 # ---------------------------------------------------------------------------
 
 
+def gain_bias(t):
+    """Slow brightness drift of examples/evaluate_ntimes.py."""
+    return 1.0 + 0.10 * np.sin(0.5 * t), 8.0 * np.sin(0.3 * t)
+
+
 def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
-                 slab=4096, profile_from=None):
-    """build_stereo_frame + System.track_frame over the sequence; returns
-    the system, the states, per-frame stage times, the ATE and the inputs.
-    With `profile_from`, the frames from that index on run under
-    torch.profiler, which is returned last (with its wall seconds)."""
+                 slab=4096, profile_from=None, sensor="stereo",
+                 world_cfg=None, omega=0.25, hardened=False):
+    """build_*_frame of `sensor` (stereo, rgbd or mono) +
+    System.track_frame over the sequence; returns the system, the states,
+    per-frame stage times, the ATE (scale-aligned over the tracked frames
+    for mono) and the inputs.  `hardened` renders with photometric noise
+    and brightness drift.  With `profile_from`, the frames from that index
+    on run under torch.profiler, which is returned last (with its wall
+    seconds)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from vieo_slam_tpu_torch.frontend.frame import build_stereo_frame
+    from vieo_slam_tpu_torch.frontend import frame as fr
     from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
     from vieo_slam_tpu_torch.io.evaluate import ate
     from vieo_slam_tpu_torch.ops import orb
-    from vieo_slam_tpu_torch.system import System, SystemConfig
+    from vieo_slam_tpu_torch.system import SensorMode, System, SystemConfig
     from vieo_slam_tpu_torch.utils.metrics import metrics
 
-    cam, bf, world, ts, Rcw, tcw, twc = scene(n_frames, width)
+    cam, bf, world, ts, Rcw, tcw, twc = scene(n_frames, width, world_cfg,
+                                              omega)
     cfg = orb.OrbConfig(n_features=n_features, n_levels=n_levels)
-    images = [world.render_stereo(cam, Rcw[i], tcw[i], BASELINE)
-              for i in range(n_frames)]
+    rng = np.random.RandomState(0)
+    images = []
+    for i in range(n_frames):
+        kw = {}
+        if hardened:
+            g, b = gain_bias(float(ts[i]))
+            kw = dict(noise_sigma=NOISE_SIGMA, gain=g, bias=b, rng=rng)
+        if sensor == "stereo":
+            images.append(world.render_stereo(cam, Rcw[i], tcw[i], BASELINE,
+                                              **kw))
+        elif sensor == "rgbd":
+            images.append(world.render_view(cam, Rcw[i], tcw[i],
+                                            return_depth=True, **kw))
+        else:
+            images.append((world.render_view(cam, Rcw[i], tcw[i], **kw),))
+
+    def build(i):
+        on_dev = [torch.from_numpy(x).to(dev) for x in images[i]]
+        t = float(ts[i])
+        if sensor == "stereo":
+            return fr.build_stereo_frame(
+                *on_dev, cfg, bf=bf, min_depth=0.3, max_depth=15.0,
+                timestamp=t, device=dev)
+        if sensor == "rgbd":
+            return fr.build_rgbd_frame(*on_dev, cfg, bf=bf, timestamp=t,
+                                       device=dev)
+        return fr.build_mono_frame(*on_dev, cfg, timestamp=t, device=dev)
+
     metrics.reset()
-    system = System(cam, bf, SystemConfig(tracker=TrackerConfig(
+    mode = {"stereo": SensorMode.STEREO, "rgbd": SensorMode.RGBD,
+            "mono": SensorMode.MONOCULAR}[sensor]
+    system = System(cam, bf, SystemConfig(sensor=mode, tracker=TrackerConfig(
         use_predicted_scale=True, local_landmark_cap=slab)), device=dev)
     states, times = [], []
     prof, prof_s = None, 0.0
-    for i, (left, right) in enumerate(images):
+    for i in range(n_frames):
         if i == profile_from:
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
@@ -296,10 +418,7 @@ def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with record_function("frame_build"):
-            frame = build_stereo_frame(
-                torch.from_numpy(left).to(dev),
-                torch.from_numpy(right).to(dev), cfg, bf=bf, min_depth=0.3,
-                max_depth=15.0, timestamp=float(ts[i]), device=dev)
+            frame = build(i)
             torch.cuda.synchronize()
         t1 = time.perf_counter()
         lm0 = metrics.stages["local_mapping"].total
@@ -314,10 +433,13 @@ def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
     if prof is not None:
         prof.__exit__(None, None, None)
     traj = system.tracker.trajectory
+    if sensor == "mono":        # no pose before the two-view initialization
+        traj = [x for x in traj if x[3] == "OK"]
     poses = np.asarray([-(R.T @ t) for _, R, t, _ in traj])
     if not np.isfinite(poses).all():
         fail("non-finite poses")
-    res = ate(np.asarray([x[0] for x in traj]), poses, ts, twc)
+    res = ate(np.asarray([x[0] for x in traj]), poses, ts, twc,
+              with_scale=sensor == "mono")
     return system, states, times, res, (cam, bf, cfg, images), (prof, prof_s)
 
 
@@ -346,6 +468,46 @@ def split_frame_build(torch, dev, cam, bf, cfg, images):
     return 1e3 * float(np.median(ext)), 1e3 * float(np.median(ste))
 
 
+def with_tail_kernel(mode, fn):
+    """fn() with ops.orb.TAIL_KERNEL_MODE set to `mode`."""
+    from vieo_slam_tpu_torch.ops import orb
+
+    before = orb.TAIL_KERNEL_MODE
+    orb.TAIL_KERNEL_MODE = mode
+    try:
+        return fn()
+    finally:
+        orb.TAIL_KERNEL_MODE = before
+
+
+def extract_ms(torch, dev, cfg, images):
+    """Median ms of extract_orb over the first image of each entry,
+    synchronized, after one warm call."""
+    from vieo_slam_tpu_torch.ops import orb
+
+    times = []
+    for n, entry in enumerate([images[0]] + list(images)):
+        img = torch.from_numpy(entry[0]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orb.extract_orb(img, cfg, device=dev)
+        torch.cuda.synchronize()
+        if n:
+            times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def check_counts(phase, launches, n_frames, at_all):
+    """The tail kernel ran once per frame and each of `at_all` at least
+    once in the run the counts were read from."""
+    if launches["tail_fused"] != n_frames:
+        fail(f"{phase}: tail_fused launched {launches['tail_fused']} times "
+             f"in {n_frames} frames")
+    idle = [k for k in at_all if launches[k] == 0]
+    if idle:
+        fail(f"{phase}: kernels never launched: {idle}")
+
+
 def summarize_profile(prof, wall_s, n_frames):
     """Device busy share, kernel launches and host waits per frame, the
     device time under each stage label, and the top device entries."""
@@ -363,37 +525,37 @@ def summarize_profile(prof, wall_s, n_frames):
               and "cuda" in str(getattr(e, "device_type", "")).lower()]
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     if not on_dev:
-        log("[6 profile] device time not measured: the profiler saw no CUDA "
+        log("[8 profile] device time not measured: the profiler saw no CUDA "
             "events")
         return
     launches = sum(e.count for e in on_dev)
     ours_ms = sum(dev_us(e) for e in on_dev if any(
         k in e.key for k in ("fast_nms_blend_kernel", "gather_patches_kernel",
-                             "best2_kernel"))) / 1e3
+                             "best2_kernel", "tail_fused_kernel"))) / 1e3
     waits = {e.key: e.count for e in events
              if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                           "cudaMemcpyAsync", "cudaEventSynchronize")}
     wall_ms = 1e3 * wall_s / n_frames
-    log(f"[6 profile] {n_frames} full-width frames under torch.profiler: "
+    log(f"[8 profile] {n_frames} full-width frames under torch.profiler: "
         f"wall {wall_ms:.2f} ms/frame, device busy {busy_ms / n_frames:.2f} "
         f"ms/frame, idle share {1 - busy_ms / (wall_ms * n_frames):.4f}, "
         f"{launches / n_frames:.0f} device ops/frame, host waits/frame "
         f"{ {k: round(v / n_frames, 1) for k, v in waits.items()} }; "
-        f"the four hand-written kernels {ours_ms / n_frames:.3f} ms/frame "
+        f"the hand-written kernels {ours_ms / n_frames:.3f} ms/frame "
         f"({ours_ms / busy_ms:.4f} of device time)")
     for label in labels:
         e = next((e for e in events if e.key == label), None)
         if e is not None:
-            log(f"[6 profile] {label}: host {e.cpu_time_total / 1e3 / n_frames:.2f}"
+            log(f"[8 profile] {label}: host {e.cpu_time_total / 1e3 / n_frames:.2f}"
                 f" ms/frame, device {dev_us(e, True) / 1e3 / n_frames:.2f} "
                 f"ms/frame")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:10]:
-        log(f"[6 profile]   device {dev_us(e) / 1e3 / n_frames:8.3f} ms/frame "
+        log(f"[8 profile]   device {dev_us(e) / 1e3 / n_frames:8.3f} ms/frame "
             f"{e.count / n_frames:7.1f}x  {e.key[:90]}")
     on_host = [e for e in events if e.key not in labels and e not in on_dev]
     for e in sorted(on_host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:10]:
-        log(f"[6 profile]   host {e.self_cpu_time_total / 1e3 / n_frames:8.3f}"
+        log(f"[8 profile]   host {e.self_cpu_time_total / 1e3 / n_frames:8.3f}"
             f" ms/frame {e.count / n_frames:7.1f}x  {e.key[:90]}")
 
 
@@ -430,10 +592,18 @@ def main():
     t0 = time.perf_counter()
     rows = check_kernels(torch, dev)
     for k, r in rows.items():
-        log(f"[3 kernels] {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+        on_card = "not measured" if r["device_ms"] is None \
+            else f"{r['device_ms']:.4f} ms"
+        log(f"[3 kernels] {k}: {r['ms']:.4f} ms a call, {on_card} of it in "
+            f"the kernel on the card (plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
             f"max_abs_err {r['max_abs_err']}, shapes {r['shapes']}")
-    log(f"[3 kernels] all four equal their plain versions "
+    r = rows["tail_fused"]
+    log(f"[3 kernels] tail_fused: angles within {r['max_abs_err']:.3g} rad "
+        f"of the plain version (bound 1e-6), {r['bit_flips']} descriptor "
+        f"bits differ (bound 0); the path it replaces (8 x gather_patches + "
+        f"the PyTorch tail) takes {r['replaced_ms']:.4f} ms on these inputs")
+    log(f"[3 kernels] all five equal their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # 4. known configuration (tests/test_image_e2e.py)
@@ -470,13 +640,65 @@ def main():
         f"{np.median(t.sum(1)):.2f}")
     if lost:
         fail(f"full-width run lost track in {lost} frames")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k, v in launches.items() if v == 0 and k != "tail_fused"]
     if idle:
         fail(f"kernels never launched on the main path: {idle}")
 
-    # 6. where the time goes: the last frames of a shorter full-width run
-    # under torch.profiler (after the counted run, so it adds no launches
-    # to phase 5's counts)
+    # 6. RGB-D full width, tail kernel on: its own counted run
+    t0 = time.perf_counter()
+    cuda_build.reset_launches()
+    system, states, times, res, (_, _, cfg, images), _ = with_tail_kernel(
+        "on", lambda: run_sequence(torch, dev, 752, 1200, 8, n_frames,
+                                   sensor="rgbd"))
+    launches_rgbd = dict(cuda_build.LAUNCHES)
+    lost = sum(s.name == "LOST" for s in states)
+    n_kf, n_lm = system.map.n_keyframes(), system.map.n_landmarks()
+    t = 1e3 * np.asarray(times[warm:])
+    log(f"[6 rgbd full width] {n_frames} frames 752x480, 1200 features, 8 "
+        f"levels, slab 4096, tail kernel on: LOST {lost}, ATE RMSE "
+        f"{res['rmse']:.5f} m, {n_kf} keyframes, {n_lm} landmarks; launches "
+        f"{launches_rgbd}; median ms/frame after {warm} warm-up frames: "
+        f"frame build {np.median(t[:, 0]):.2f}, track "
+        f"{np.median(t[:, 1]):.2f}, total {np.median(t.sum(1)):.2f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if lost or not res["rmse"] < 0.02 or n_kf < 5 or n_lm <= 200:
+        fail("RGB-D full-width run misses its bars")
+    check_counts("RGB-D full width", launches_rgbd, n_frames,
+                 ("fast_nms_blend", "fused_best2", "fused_projection_best2"))
+    ext = [with_tail_kernel(m, lambda: extract_ms(torch, dev, cfg,
+                                                  images[warm:warm + 10]))
+           for m in ("on", "off", "off", "on")]
+    log(f"[6 rgbd full width] extract_orb median ms/image over 10 images, "
+        f"tail kernel on {ext[0]:.2f}, off {ext[1]:.2f}, off {ext[2]:.2f}, "
+        f"on {ext[3]:.2f}")
+
+    # 7. mono known configuration, tail kernel on: its own counted run
+    t0 = time.perf_counter()
+    n_mono = 60
+    cuda_build.reset_launches()
+    system, states, _, res, _, _ = with_tail_kernel(
+        "on", lambda: run_sequence(
+            torch, dev, 640, 1000, 4, n_mono, sensor="mono",
+            world_cfg=MONO_WORLD, omega=MONO_OMEGA, hardened=True))
+    launches_mono = dict(cuda_build.LAUNCHES)
+    names = [s.name for s in states]
+    first = names.index("OK") if "OK" in names else -1
+    lost = sum(s != "OK" for s in names[first:]) if first >= 0 else n_mono
+    log(f"[7 mono known] {n_mono} frames 640x480, 1000 features, 4 levels, "
+        f"tail kernel on: initialized at frame {first}, {lost} frames not OK "
+        f"after it, scale-aligned ATE RMSE {res['rmse']:.5f} m over "
+        f"{res['n']} frames (scale {res['scale']:.4f}), "
+        f"{system.map.n_keyframes()} keyframes, "
+        f"{system.map.n_landmarks()} landmarks; launches {launches_mono} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if first < 0 or lost or not res["rmse"] < 0.02:
+        fail("mono known configuration misses its bars")
+    check_counts("mono known", launches_mono, n_mono,
+                 ("fast_nms_blend", "fused_best2", "fused_projection_best2"))
+
+    # 8. where the time goes: the last frames of a shorter full-width run
+    # under torch.profiler (after the counted runs, so it adds no launches
+    # to their counts)
     n_prof, prof_from = 14, 8
     *_, (prof, prof_s) = run_sequence(torch, dev, 752, 1200, 8, n_prof,
                                       profile_from=prof_from)
@@ -489,17 +711,27 @@ def main():
                         "vieo_slam_tpu/ops/pallas_matching.py:246"),
         "fused_projection_best2": (
             "matching.cu", "vieo_slam_tpu/ops/pallas_matching.py:166"),
+        "tail_fused": ("tail.cu", "vieo_slam_tpu/ops/pallas_tail.py:180"),
     }
+    # `launches`: B1-B4 as counted over the stereo full-width run, B5 over
+    # the RGB-D full-width run (the stereo run keeps the default tail);
+    # `launches_by_path` has every counted run.
     kernels = []
     for k, (src, replaces) in meta.items():
         r = rows[k]
+        by_path = {"stereo_full_width": launches[k],
+                   "rgbd_full_width": launches_rgbd[k],
+                   "mono_known": launches_mono[k]}
         kernels.append({
             "name": k, "route": "cuda",
             "source": f"vieo_slam_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[k],
+            "replaces": replaces,
+            "launches": launches_rgbd[k] if k == "tail_fused"
+            else launches[k], "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None})
+            "bound_by": r["bound"][1], "library_ms": None,
+            "device_ms": r["device_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

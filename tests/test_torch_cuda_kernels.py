@@ -1,16 +1,21 @@
-"""Kernels B1-B4 on the GPU against their plain PyTorch versions, at the
+"""Kernels B1-B5 on the GPU against their plain PyTorch versions, at the
 edge shapes that chip_smoke.py's main-path shapes do not reach: images
 smaller than one tile, ragged tiles, empty inputs, all-masked rows and
-columns, many exact Hamming ties and more columns than a block has
-threads.
+columns, many exact Hamming ties, more columns than a block has threads;
+for the tail kernel B5 one keypoint, odd counts, one level, an empty
+level, more levels than one launch takes, centers on and outside the
+border and an image as narrow as the window.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skip elsewhere.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 
-Tolerance: none.  B1 repeats the plain version's f32 adds in the same
-order, B2 copies pixels, B3 and B4 return integers.
+Tolerance: none for B1-B4 (B1 repeats the plain version's f32 adds in
+the same order, B2 copies pixels, B3 and B4 return integers) and none for
+B5's descriptors (every product and sum is rounded as in the plain
+version, the moment sums run in the same tree order); B5's angles agree
+to 1e-6 rad, the room two atan2 implementations may differ in.
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 
 from vieo_slam_tpu_torch.ops import cuda_build, cuda_fast, cuda_gather
 from vieo_slam_tpu_torch.ops import cuda_matching as cm
+from vieo_slam_tpu_torch.ops import cuda_tail
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +127,57 @@ def test_fused_projection_best2(dev, M, N):
         got = cm.fused_projection_best2(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+TAIL_CASES = {
+    # name: [(H, W, n_centers), ...] per level
+    "one_keypoint": [(60, 80, 1)],
+    "odd_count": [(97, 131, 37), (81, 109, 5)],
+    "empty_level": [(120, 160, 33), (100, 133, 0), (83, 111, 17)],
+    "all_empty": [(40, 50, 0)],
+    "window_wide_image": [(53, 53, 20), (70, 53, 9)],
+    "smaller_than_window": [(20, 31, 6), (1, 1, 2)],
+    "three_launches": [(64 + 2 * i, 70 + i, 3) for i in range(70)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(TAIL_CASES))
+def test_tail_fused(dev, case):
+    rng = np.random.RandomState(len(case))
+    imgs, uvs = [], []
+    for H, W, n in TAIL_CASES[case]:
+        imgs.append(torch.from_numpy(
+            rng.rand(H, W).astype(np.float32) * 255).to(dev))
+        # centers inside, on the border, and up to 30 pixels outside
+        c = np.stack([rng.randint(-30, W + 30, n),
+                      rng.randint(-30, H + 30, n)], -1)
+        c[: n // 3] = np.stack([rng.randint(0, W, n // 3),
+                                rng.randint(0, H, n // 3)], -1)
+        border = np.array([[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0]])
+        c[n // 3: n // 3 + 4] = border[: len(c[n // 3: n // 3 + 4])]
+        uvs.append(torch.from_numpy(c.astype(np.int32)).to(dev))
+    total = sum(n for *_, n in TAIL_CASES[case])
+    launches = -(-len(imgs) // cuda_tail.MAX_LEVELS) if total else 0
+    n0 = cuda_build.LAUNCHES["tail_fused"]
+    got = cuda_tail.tail_fused_multi(imgs, uvs)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["tail_fused"] == n0 + launches
+    want = cuda_tail.tail_fused_multi_plain(imgs, uvs)
+    assert len(got) == len(want) == len(imgs)
+    for (ang, desc), (ang_p, desc_p), uv in zip(got, want, uvs):
+        assert ang.shape == (uv.shape[0],) and desc.shape == (uv.shape[0], 8)
+        assert desc.dtype == torch.int32
+        assert torch.equal(desc, desc_p)
+        if uv.shape[0]:
+            assert float((ang - ang_p).abs().max()) <= 1e-6
+
+
+def test_tail_fused_rejects_bad_arguments(dev):
+    img = torch.zeros((60, 80), device=dev)
+    uv = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        cuda_tail.tail_fused_multi([img], [uv.long()])
+    with pytest.raises(ValueError):
+        cuda_tail.tail_fused_multi([img.T], [uv])
+    with pytest.raises(ValueError):
+        cuda_tail.tail_fused_multi([img], [uv.cpu()])

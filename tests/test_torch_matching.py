@@ -19,6 +19,10 @@ from vieo_slam_tpu.ops import pallas_matching as jpm
 from vieo_slam_tpu_torch.ops import cuda_matching as tk
 from vieo_slam_tpu_torch.ops import matching as tm
 
+# One intra-op thread: the suite runs several worker processes at once and
+# the tensors here are small, so more threads only contend for the cores.
+torch.set_num_threads(1)
+
 
 def descriptors(rng, n, n_unique=None):
     """uint32 [n, 8] words; with n_unique < n, rows repeat (Hamming ties)."""

@@ -21,6 +21,10 @@ from vieo_slam_tpu.math import lie as jlie
 from vieo_slam_tpu_torch.cameras import models as tcm
 from vieo_slam_tpu_torch.math import lie as tlie
 
+# One intra-op thread: the suite runs several worker processes at once and
+# the tensors here are small, so more threads only contend for the cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -32,6 +32,10 @@ from vieo_slam_tpu_torch import convert
 from vieo_slam_tpu_torch.ops import cuda_fast, cuda_gather
 from vieo_slam_tpu_torch.ops import orb as torb
 
+# One intra-op thread: the suite runs several worker processes at once and
+# the tensors here are small, so more threads only contend for the cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def jax_fused_tail(monkeypatch):

@@ -27,6 +27,10 @@ from vieo_slam_tpu_torch.cameras import models as tcm
 from vieo_slam_tpu_torch.solvers import local_ba as tlba
 from vieo_slam_tpu_torch.solvers import motion_ba as tmba
 
+# One intra-op thread: the suite runs several worker processes at once and
+# the tensors here are small, so more threads only contend for the cores.
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 J = jnp.asarray
 CAM_ARGS = (458.0, 458.0, 376.0, 240.0, 752, 480)

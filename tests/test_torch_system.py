@@ -35,6 +35,10 @@ from vieo_slam_tpu_torch.ops import orb as torb
 from vieo_slam_tpu_torch.sim import world as tworld
 from vieo_slam_tpu_torch.system import System, SystemConfig
 
+# One intra-op thread: the suite runs several worker processes at once and
+# the tensors here are small, so more threads only contend for the cores.
+torch.set_num_threads(1)
+
 BASELINE = 0.2
 CAM = (200.0, 200.0, 160.0, 120.0, 320, 240)
 BF = 200.0 * BASELINE

@@ -15,11 +15,14 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .cameras import models as cm
 from .frontend.frame import Frame, make_frame_from_features
 from .map.map_state import MapConfig, MapState
 from .ops.orb import OrbConfig
+from .solvers.initializer import MonoInitResult
+from .system import SensorMode, SystemConfig
 
 _MAP_ARRAYS = (
     "kf_valid", "kf_Rcw", "kf_tcw", "kf_timestamp", "kf_frame_id", "kf_Rwb",
@@ -70,3 +73,24 @@ def frame_from_jax(jframe, device=None) -> Frame:
         np.asarray(jframe.valid), ur=np.asarray(jframe.ur),
         depth=np.asarray(jframe.depth),
         timestamp=float(np.asarray(jframe.timestamp)), device=device)
+
+
+def system_config_from_jax(jcfg, tracker=None, mapper=None) -> SystemConfig:
+    """The port's SystemConfig with the JAX SystemConfig's sensor mode and
+    map sizes; tracker and mapper configurations are passed as the port's
+    own (their JAX counterparts carry fields of slices not ported yet)."""
+    cfg = SystemConfig(
+        sensor=SensorMode[jcfg.sensor.name],
+        map=MapConfig(**{f.name: getattr(jcfg.map, f.name)
+                         for f in dataclasses.fields(MapConfig)}))
+    if tracker is not None:
+        cfg.tracker = tracker
+    if mapper is not None:
+        cfg.mapper = mapper
+    return cfg
+
+
+def mono_init_result_from_jax(jres, device="cpu") -> MonoInitResult:
+    """A port MonoInitResult from the JAX package's."""
+    return MonoInitResult(*(torch.from_numpy(np.array(x)).to(device)
+                            for x in jres))

@@ -1,8 +1,9 @@
 """Frame construction: the per-image measurement container.
 
-Port of the rectified-stereo part of vieo_slam_tpu/frontend/frame.py: a
-Frame is a NamedTuple of fixed-capacity tensors on one device.  Mono,
-RGB-D and multi-camera frames come with their slices.
+Port of the pinhole part of vieo_slam_tpu/frontend/frame.py (rectified
+stereo, RGB-D and monocular): a Frame is a NamedTuple of fixed-capacity
+tensors on one device.  Distorted multi-camera frames come with their
+slice.
 """
 
 from __future__ import annotations
@@ -77,8 +78,11 @@ def build_stereo_frame(img_left, img_right, cfg: orb.OrbConfig, *, bf: float,
 
     Runs on `device` (default: the GPU; raises when CUDA is missing)."""
     dev = resolve_device(device)
-    fl = orb.extract_orb(img_left, cfg, device=dev)
-    fr = orb.extract_orb(img_right, cfg, device=dev)
+    pair = torch.stack([
+        torch.as_tensor(im, dtype=torch.float32).to(dev)
+        for im in (img_left, img_right)])
+    f = orb.extract_orb_batch(pair, cfg, device=dev)
+    fl, fr = (orb.OrbFeatures(*(x[b] for x in f)) for b in (0, 1))
     u_r, _ = matching.search_stereo_rectified(
         fl.uv, fl.level, fl.desc, fl.valid,
         fr.uv, fr.level, fr.desc, fr.valid,
@@ -89,4 +93,41 @@ def build_stereo_frame(img_left, img_right, cfg: orb.OrbConfig, *, bf: float,
                         torch.full_like(u_r, -1.0))
     return Frame(uv=fl.uv, level=fl.level, angle=fl.angle, desc=fl.desc,
                  ur=u_r, depth=depth, valid=fl.valid,
+                 timestamp=float(timestamp))
+
+
+def build_mono_frame(img, cfg: orb.OrbConfig, *, timestamp=0.0,
+                     device=None) -> Frame:
+    """Monocular frame: ORB only -- no depth, no right-u (depth arrives
+    later through two-view initialization and triangulation)."""
+    dev = resolve_device(device)
+    f = orb.extract_orb(img, cfg, device=dev)
+    none = torch.full((f.uv.shape[0],), -1.0, dtype=torch.float32, device=dev)
+    return Frame(uv=f.uv, level=f.level, angle=f.angle, desc=f.desc,
+                 ur=none, depth=none.clone(), valid=f.valid,
+                 timestamp=float(timestamp))
+
+
+def make_mono_frame(img, cfg: orb.OrbConfig, timestamp=0.0,
+                    device=None) -> Frame:
+    """build_mono_frame with the timestamp as a positional argument."""
+    return build_mono_frame(img, cfg, timestamp=timestamp, device=device)
+
+
+def build_rgbd_frame(img, depth_img, cfg: orb.OrbConfig, *, bf: float,
+                     depth_scale: float = 1.0, timestamp=0.0,
+                     device=None) -> Frame:
+    """RGB-D frame: depth sampled at the keypoint's pixel (truncated
+    coordinates), virtual right-u = u - bf / z; z <= 0 means no depth."""
+    dev = resolve_device(device)
+    f = orb.extract_orb(img, cfg, device=dev)
+    depth_img = torch.as_tensor(depth_img, dtype=torch.float32).to(dev)
+    xi = f.uv[:, 0].long().clamp(0, depth_img.shape[1] - 1)
+    yi = f.uv[:, 1].long().clamp(0, depth_img.shape[0] - 1)
+    z = depth_img[yi, xi] * depth_scale
+    has_d = z > 0
+    none = torch.full_like(z, -1.0)
+    ur = torch.where(has_d, f.uv[:, 0] - bf / torch.clamp_min(z, 1e-6), none)
+    return Frame(uv=f.uv, level=f.level, angle=f.angle, desc=f.desc,
+                 ur=ur, depth=torch.where(has_d, z, none), valid=f.valid,
                  timestamp=float(timestamp))

@@ -1,11 +1,12 @@
 """Tracking: per-frame pose estimation state machine.
 
-Port of the stereo part of vieo_slam_tpu/frontend/tracking.py: the host
-runs the small state machine and local-map selection; the per-frame heavy
-step -- projecting a fixed-capacity landmark slab, windowed Hamming
-association (kernel B4) and motion-only BA -- runs as tensor code on the
-frame's device.  Relocalization and the monocular initializer come with
-their slices.
+Port of the vision part of vieo_slam_tpu/frontend/tracking.py (stereo,
+RGB-D and monocular): the host runs the small state machine and local-map
+selection; the per-frame heavy step -- projecting a fixed-capacity
+landmark slab, windowed Hamming association (kernel B4) and motion-only
+BA -- runs as tensor code on the frame's device, as does the two-view
+monocular initializer (descriptor matching in kernel B3).  Relocalization
+and the odometry predictions come with their slices.
 """
 
 from __future__ import annotations
@@ -106,7 +107,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 class Tracker:
-    """Host-side tracking orchestrator (synchronous stereo)."""
+    """Host-side tracking orchestrator (synchronous; stereo, RGB-D, mono)."""
 
     def __init__(self, cam: cm.Camera, bf: float, map_state: MapState,
                  cfg: Optional[TrackerConfig] = None):
@@ -124,6 +125,7 @@ class Tracker:
         self.frame_id = 0
         self.ref_tracked = 0         # inlier count at last KF creation
         self.last_new_kf: Optional[int] = None  # KF created this frame
+        self._mono_init_frame: Optional[Frame] = None  # held reference
         # trajectory log: (timestamp, Rcw, tcw, state)
         self.trajectory = []
         # (timestamp, ref_kf, R_cr, t_cr, state)
@@ -233,9 +235,71 @@ class Tracker:
         self.state = TrackState.OK
 
     def _monocular_initialization(self, frame: Frame):
-        raise NotImplementedError(
-            "monocular initialization is not ported yet: the first frame "
-            "needs at least 100 keypoints with stereo depth")
+        """Two-view initialization between a held reference frame and the
+        current one; on success the map scale is normalized to unit median
+        depth, keyframe 0 sits at the identity and keyframe 1 at
+        (R21, t21)."""
+        from ..solvers.initializer import monocular_init
+
+        if self._mono_init_frame is None:
+            if int(frame.valid.sum()) >= 100:
+                self._mono_init_frame = frame
+            return
+        f0 = self._mono_init_frame
+        idx, _ = matching.match_descriptors(
+            f0.desc, frame.desc, f0.valid, frame.valid, max_dist=60,
+            ratio=0.8)
+        idx = _np(idx)
+        rows = np.nonzero(idx >= 0)[0]
+        if rows.size < 100:
+            # too little overlap: re-anchor on the current frame
+            self._mono_init_frame = frame
+            return
+        n_cap = f0.uv.shape[0]
+        uv1 = np.zeros((n_cap, 2), np.float32)
+        uv2 = np.zeros((n_cap, 2), np.float32)
+        val = np.zeros(n_cap, bool)
+        m = rows.size
+        uv1[:m] = _np(f0.uv)[rows]
+        uv2[:m] = _np(frame.uv)[idx[rows]]
+        val[:m] = True
+        dev = frame.uv.device
+        res = monocular_init(
+            torch.from_numpy(uv1).to(dev), torch.from_numpy(uv2).to(dev),
+            torch.from_numpy(val).to(dev), self.cam,
+            torch.Generator().manual_seed(self.frame_id))
+        if not bool(res.ok):
+            return
+        good = _np(res.good)[:m]
+        pw = _np(res.pw)[:m]
+        # Normalize scale: unit median depth.
+        med = float(np.median(pw[good, 2])) if good.any() else 1.0
+        if not np.isfinite(med) or med <= 1e-6:
+            return
+        inv = 1.0 / med
+        pw = pw * inv
+        R21 = _np(res.R21).astype(np.float32)
+        t21 = _np(res.t21).astype(np.float32) * inv
+
+        kp0 = rows[good]
+        kp1 = idx[rows][good]
+        lm_ids = self.map.add_landmarks(
+            pw[good].astype(np.float32), _desc_np(f0)[kp0], first_kf=0)
+        lm0 = np.full(n_cap, -1, np.int32)
+        lm1 = np.full(frame.uv.shape[0], -1, np.int32)
+        lm0[kp0] = lm_ids
+        lm1[kp1] = lm_ids
+        self.Rcw = np.eye(3, dtype=np.float32)
+        self.tcw = np.zeros(3, np.float32)
+        self._insert_keyframe(f0, lm0, frame_id=self.frame_id - 1)
+        self.Rcw = normalize_rotation_np(R21)
+        self.tcw = t21
+        k1 = self._insert_keyframe(frame, lm1)
+        self.last_kf_id = k1
+        self.last_new_kf = k1
+        self.ref_tracked = int(good.sum())
+        self.state = TrackState.OK
+        self._mono_init_frame = None
 
     # ------------------------------------------------------------------
 
@@ -329,11 +393,14 @@ class Tracker:
             return True
         return n_inliers < self.cfg.kf_tracked_ratio * max(self.ref_tracked, 1)
 
-    def _insert_keyframe(self, frame: Frame, lm_idx_full: np.ndarray) -> int:
+    def _insert_keyframe(self, frame: Frame, lm_idx_full: np.ndarray,
+                         frame_id: Optional[int] = None) -> int:
+        """A keyframe of `frame` at the tracker's current pose."""
         f_uv = _np(frame.uv)
         return self.map.add_keyframe(
             Rcw=self.Rcw, tcw=self.tcw, timestamp=float(frame.timestamp),
-            frame_id=self.frame_id, uv=f_uv, level=_np(frame.level),
+            frame_id=self.frame_id if frame_id is None else frame_id,
+            uv=f_uv, level=_np(frame.level),
             desc=_desc_np(frame), ur=_np(frame.ur), depth=_np(frame.depth),
             kp_valid=_np(frame.valid), lm_idx=lm_idx_full)
 

@@ -1,10 +1,9 @@
-"""Trajectory evaluation: ATE after rigid (SE3) alignment.
+"""Trajectory evaluation: ATE with SE3/Sim3 alignment.
 
 Equivalent of the TUM rgbd_benchmark_tools `evaluate_ate.py` pipeline the
 reference uses (Examples/RunEuRoC/EvaluateEuRoC_Evaluate.sh:38-56), as a
-library function: associate by timestamp, Umeyama alignment,
-RMSE/median/max of translational error.  Scale alignment (monocular)
-comes with the mono slice.
+library function: associate by timestamp, Umeyama alignment (optionally
+with scale, for monocular), RMSE/median/max of translational error.
 """
 
 from __future__ import annotations
@@ -12,19 +11,25 @@ from __future__ import annotations
 import numpy as np
 
 
-def umeyama_alignment(src: np.ndarray, dst: np.ndarray):
-    """Least-squares rigid transform aligning src -> dst ([N, 3])."""
+def umeyama_alignment(src: np.ndarray, dst: np.ndarray, with_scale=False):
+    """Least-squares similarity transform aligning src -> dst ([N, 3]):
+    (scale, R, t); the scale is 1 unless with_scale."""
     mu_s = src.mean(0)
     mu_d = dst.mean(0)
     xs = src - mu_s
     xd = dst - mu_d
     cov = xd.T @ xs / len(src)
-    U, _, Vt = np.linalg.svd(cov)
+    U, D, Vt = np.linalg.svd(cov)
     S = np.eye(3)
     if np.linalg.det(U) * np.linalg.det(Vt) < 0:
         S[2, 2] = -1
     R = U @ S @ Vt
-    return R, mu_d - R @ mu_s
+    if with_scale:
+        var_s = (xs ** 2).sum() / len(src)
+        s = np.trace(np.diag(D) @ S) / var_s
+    else:
+        s = 1.0
+    return float(s), R, mu_d - s * R @ mu_s
 
 
 def associate(t_a: np.ndarray, t_b: np.ndarray, max_dt=0.02):
@@ -38,19 +43,19 @@ def associate(t_a: np.ndarray, t_b: np.ndarray, max_dt=0.02):
     return np.nonzero(ok)[0], pick[ok]
 
 
-def ate(t_est, p_est, t_gt, p_gt, *, max_dt=0.02):
+def ate(t_est, p_est, t_gt, p_gt, *, with_scale=False, max_dt=0.02):
     """Absolute trajectory error after alignment.
 
-    Returns dict(rmse, mean, median, max, n).
+    Returns dict(rmse, mean, median, max, n, scale).
     """
     ia, ib = associate(np.asarray(t_est), np.asarray(t_gt), max_dt)
     if len(ia) < 3:
         return dict(rmse=np.inf, mean=np.inf, median=np.inf, max=np.inf,
-                    n=len(ia))
+                    n=len(ia), scale=1.0)
     src = np.asarray(p_est)[ia]
     dst = np.asarray(p_gt)[ib]
-    R, t = umeyama_alignment(src, dst)
-    aligned = src @ R.T + t
+    s, R, t = umeyama_alignment(src, dst, with_scale)
+    aligned = s * src @ R.T + t
     err = np.linalg.norm(aligned - dst, axis=1)
     return dict(
         rmse=float(np.sqrt((err ** 2).mean())),
@@ -58,4 +63,5 @@ def ate(t_est, p_est, t_gt, p_gt, *, max_dt=0.02):
         median=float(np.median(err)),
         max=float(err.max()),
         n=len(err),
+        scale=float(s),
     )

@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fast_nms.cu", "gather.cu", "matching.cu")
+SOURCES = ("fast_nms.cu", "gather.cu", "matching.cu", "tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +37,7 @@ LAUNCHES: dict[str, int] = {
     "gather_patches": 0,
     "fused_best2": 0,
     "fused_projection_best2": 0,
+    "tail_fused": 0,
 }
 
 _lock = threading.Lock()
@@ -52,6 +53,7 @@ _SIGNATURES = {
         "vs_fused_projection_best2": (_P, _P, _P, _P, _F, _I, _I, _P, _P, _P,
                                       _P, _P),
     },
+    "tail.cu": {"vs_tail_fused": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)},
 }
 
 

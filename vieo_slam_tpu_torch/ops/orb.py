@@ -2,11 +2,14 @@
 
 Port of vieo_slam_tpu/ops/orb.py (the extraction path the TPU runs):
 whole-image tensor math with fixed shapes, a deterministic per-cell
-top-k + global top-N keypoint selection, and the fused keypoint tail (one
-53x53 raw patch per keypoint, IC angle from its centre, in-patch 7-tap
-blur, rotated-BRIEF taps).  The image-wide FAST/NMS/blend step runs in
-kernel B1 (ops/cuda_fast.py) and the patch gathers in kernel B2
-(ops/cuda_gather.py) when the image lies on the GPU.
+top-k + global top-N keypoint selection, and the keypoint tail.  The
+default tail is the fused one (one 53x53 raw patch per keypoint, IC angle
+from its centre, in-patch 7-tap blur, rotated-BRIEF taps); the unfused
+tail (whole-image blur, two gathers per keypoint) sits behind
+`FUSED_TAIL_MODE`.  On the GPU the image-wide FAST/NMS/blend step runs in
+kernel B1 (ops/cuda_fast.py), the patch gathers in kernel B2
+(ops/cuda_gather.py), and with `TAIL_KERNEL_MODE = "on"` the whole tail of
+an image in one launch of kernel B5 (ops/cuda_tail.py).
 
 Descriptors are [N, 8] int32 tensors carrying the bits of the JAX
 package's uint32 words.
@@ -17,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -227,12 +231,17 @@ def _blur7_patch(patches: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
 def brief_from_patches(patches: torch.Tensor,
                        angles: torch.Tensor) -> torch.Tensor:
     """Rotated-BRIEF bits from blurred patches [N, 47, 47] -> [N, 8] int32."""
+    return brief_from_rotation(patches, torch.cos(angles), torch.sin(angles))
+
+
+def brief_from_rotation(patches: torch.Tensor, ca: torch.Tensor,
+                        sa: torch.Tensor) -> torch.Tensor:
+    """brief_from_patches with the rotation given as cos [N] and sin [N]."""
     r = BRIEF_R
     d = 2 * r + 1
     assert patches.shape[-1] == d
     dev = patches.device
     pat = torch.from_numpy(BRIEF_PATTERN.astype(np.float32)).to(dev)
-    ca, sa = torch.cos(angles), torch.sin(angles)
     px, py = pat[..., 0], pat[..., 1]                        # [256, 2]
     rx = torch.round(ca[:, None, None] * px - sa[:, None, None] * py).long()
     ry = torch.round(sa[:, None, None] * px + ca[:, None, None] * py).long()
@@ -249,6 +258,54 @@ def brief_from_patches(patches: torch.Tensor,
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()
 
 
+def gaussian_blur7(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """Separable 7x7 Gaussian over [..., H, W] with edge padding, rows
+    then columns (the blur the unfused tail samples descriptors from)."""
+    k = _gauss7(sigma)
+    h_, w_ = img.shape[-2:]
+    x = img.reshape(-1, 1, h_, w_)
+    pad = torch.nn.functional.pad(x, (3, 3, 3, 3), mode="replicate")
+    h = sum(pad[..., 3:-3, i:i + w_] * k[i] for i in range(7))
+    hpad = torch.nn.functional.pad(h, (0, 0, 3, 3), mode="replicate")
+    v = sum(hpad[..., i:i + h_, :] * k[i] for i in range(7))
+    return v.reshape(img.shape)
+
+
+def brief_descriptors(img_blur: torch.Tensor, centers: torch.Tensor,
+                      angles: torch.Tensor) -> torch.Tensor:
+    """Rotated-BRIEF descriptors [N, 8] int32 sampled from a blurred level
+    image around integer centers."""
+    return brief_from_patches(gather_patches(img_blur, centers, BRIEF_R),
+                              angles)
+
+
+def _env_mode(name: str) -> str:
+    """Validated auto/on/off environment switch (a typo must fail loudly
+    instead of silently picking a path)."""
+    v = os.environ.get(name, "auto").strip().lower()
+    if v not in ("auto", "on", "off"):
+        raise ValueError(f"{name}={os.environ.get(name)!r}: expected "
+                         "auto|on|off")
+    return v
+
+
+# Tail backends, named as in the JAX package.  FUSED_TAIL_MODE: "auto"
+# and "on" take the fused tail (what the JAX package runs on its
+# accelerator), "off" the unfused one.  TAIL_KERNEL_MODE: "on" routes the
+# fused tail through kernel B5 (one launch for all levels); "auto" and
+# "off" keep per-level B2 gathers plus the PyTorch tail, the JAX default.
+FUSED_TAIL_MODE = _env_mode("ORB_FUSED_TAIL")
+TAIL_KERNEL_MODE = _env_mode("ORB_TAIL_KERNEL")
+
+
+def _use_fused_tail() -> bool:
+    return FUSED_TAIL_MODE != "off"
+
+
+def _use_tail_kernel() -> bool:
+    return TAIL_KERNEL_MODE == "on"
+
+
 def _tail_from_big(big: torch.Tensor):
     """(angle, desc) from pre-gathered [N, 53, 53] raw patches."""
     c0 = _TAIL_R - PATCH_RADIUS
@@ -258,10 +315,21 @@ def _tail_from_big(big: torch.Tensor):
     return ang, brief_from_patches(blurp, ang)
 
 
+def extract_tail_fused(im: torch.Tensor, uv: torch.Tensor):
+    """Fused orientation + descriptor tail of one level: (angle [N],
+    desc [N, 8]) from the raw (unblurred) level image."""
+    (ang, desc), = extract_tail_fused_multi([im], [uv])
+    return ang, desc
+
+
 def extract_tail_fused_multi(level_imgs: list, level_uvs: list):
-    """Per-level 53x53 patch gathers (kernel B2, one launch per level),
-    then one concatenated blur + IC-angle + BRIEF pass over all levels.
+    """Fused tail of all levels.  With the tail kernel on: one launch of
+    kernel B5.  Otherwise per-level 53x53 patch gathers (kernel B2, one
+    launch per level), then one concatenated blur + IC-angle + BRIEF pass.
     Returns [(angle, desc), ...] per level."""
+    if _use_tail_kernel():
+        from . import cuda_tail
+        return cuda_tail.tail_fused_multi(level_imgs, level_uvs)
     bigs = [gather_patches(im, uv, _TAIL_R)
             for im, uv in zip(level_imgs, level_uvs)]
     ang, desc = _tail_from_big(torch.cat(bigs))
@@ -274,9 +342,91 @@ def extract_tail_fused_multi(level_imgs: list, level_uvs: list):
     return out
 
 
+def _tails(level_imgs: list, level_uvs: list):
+    """[(angle, desc), ...] per level through the configured tail."""
+    if _use_fused_tail():
+        return extract_tail_fused_multi(level_imgs, level_uvs)
+    tails = []
+    for im, uv in zip(level_imgs, level_uvs):
+        ang = ic_angle(gather_patches(im, uv, PATCH_RADIUS))
+        tails.append((ang, brief_descriptors(gaussian_blur7(im), uv, ang)))
+    return tails
+
+
 # ---------------------------------------------------------------------------
 # Full extraction
 # ---------------------------------------------------------------------------
+
+
+def _select_level(im: torch.Tensor, n_l: int, cfg: OrbConfig):
+    """select_keypoints on one level's blended score, padded to n_l rows."""
+    uv, s, valid = select_keypoints(_blended_score(im, cfg), n_l, cfg)
+    if uv.shape[0] < n_l:  # tiny levels: pad capacity
+        padn = n_l - uv.shape[0]
+        uv = torch.nn.functional.pad(uv, (0, 0, 0, padn))
+        s = torch.nn.functional.pad(s, (0, padn))
+        valid = torch.nn.functional.pad(valid, (0, padn))
+    return uv.contiguous(), s, valid
+
+
+def _assemble(lvs: list, sels: list, tails: list, cfg: OrbConfig,
+              dev) -> OrbFeatures:
+    """OrbFeatures of one image from its per-level selections and tails."""
+    uts, lvls, angs, scs, descs, vals = [], [], [], [], [], []
+    for lv, (uv, s, valid), (ang, desc) in zip(lvs, sels, tails):
+        uts.append(uv.float() * float(cfg.level_scales[lv]))
+        lvls.append(torch.full((uv.shape[0],), lv, dtype=torch.int32,
+                               device=dev))
+        angs.append(ang)
+        scs.append(torch.where(valid, s, torch.zeros_like(s)))
+        descs.append(desc)
+        vals.append(valid)
+    return OrbFeatures(
+        uv=torch.cat(uts), level=torch.cat(lvls), angle=torch.cat(angs),
+        score=torch.cat(scs), desc=torch.cat(descs), valid=torch.cat(vals))
+
+
+def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
+    """ORB on a batch of same-sized images [B, H, W] (the stereo pair).
+
+    Every field of the result has a leading [B] axis and equals the stacked
+    per-image `extract_orb` results bit for bit: pyramid, FAST (kernel B1)
+    and selection run per (level, image), as in the JAX package; with the
+    tail kernel on, the keypoint tail of all images is one launch."""
+    dev = resolve_device(device)
+    imgs = torch.as_tensor(imgs, dtype=torch.float32).to(dev)
+    if imgs.ndim != 3:
+        raise ValueError(f"expected [B, H, W] images, got {tuple(imgs.shape)}")
+    B = imgs.shape[0]
+    pyramids = [build_pyramid(imgs[b].contiguous(), cfg) for b in range(B)]
+    per_level = cfg.features_per_level
+    meta, sels = [], []                    # (lv, b, level image)
+    for lv in range(cfg.n_levels):
+        n_l = int(per_level[lv])
+        if n_l == 0:
+            continue
+        for b in range(B):
+            im = pyramids[b][lv]
+            meta.append((lv, b, im))
+            sels.append(_select_level(im, n_l, cfg))
+    # Kernel B5 takes all levels of all images in one launch (each block
+    # is on its own).  The PyTorch tails run image by image: their
+    # vectorized reductions are not row-independent to the last ulp.
+    every = list(range(len(meta)))
+    groups = [every] if _use_fused_tail() and _use_tail_kernel() else \
+        [[i for i in every if meta[i][1] == b] for b in range(B)]
+    tails = [None] * len(meta)
+    for rows in groups:
+        for i, tail in zip(rows, _tails([meta[i][2] for i in rows],
+                                        [sels[i][0] for i in rows])):
+            tails[i] = tail
+    per_image = []
+    for b in range(B):
+        rows = [i for i in every if meta[i][1] == b]
+        per_image.append(_assemble(
+            [meta[i][0] for i in rows], [sels[i] for i in rows],
+            [tails[i] for i in rows], cfg, dev))
+    return OrbFeatures(*(torch.stack(f) for f in zip(*per_image)))
 
 
 def extract_orb(img, cfg: OrbConfig, device=None) -> OrbFeatures:
@@ -286,31 +436,7 @@ def extract_orb(img, cfg: OrbConfig, device=None) -> OrbFeatures:
     tensor already on `device` is used as it is."""
     dev = resolve_device(device)
     img = torch.as_tensor(img, dtype=torch.float32).to(dev)
-    pyramid = build_pyramid(img, cfg)
-    per_level = cfg.features_per_level
-    levels = [(lv, pyramid[lv]) for lv in range(len(pyramid))
-              if int(per_level[lv]) > 0]
-    sels = []
-    for lv, im in levels:
-        n_l = int(per_level[lv])
-        uv, s, valid = select_keypoints(_blended_score(im, cfg), n_l, cfg)
-        if uv.shape[0] < n_l:  # tiny levels: pad capacity
-            padn = n_l - uv.shape[0]
-            uv = torch.nn.functional.pad(uv, (0, 0, 0, padn))
-            s = torch.nn.functional.pad(s, (0, padn))
-            valid = torch.nn.functional.pad(valid, (0, padn))
-        sels.append((uv, s, valid))
-    tails = extract_tail_fused_multi([im for _, im in levels],
-                                     [uv for uv, _, _ in sels])
-    uts, lvls, angs, scs, descs, vals = [], [], [], [], [], []
-    for (lv, _), (uv, s, valid), (ang, desc) in zip(levels, sels, tails):
-        n_l = int(per_level[lv])
-        uts.append(uv.float() * float(cfg.level_scales[lv]))
-        lvls.append(torch.full((n_l,), lv, dtype=torch.int32, device=dev))
-        angs.append(ang)
-        scs.append(torch.where(valid, s, torch.zeros_like(s)))
-        descs.append(desc)
-        vals.append(valid)
-    return OrbFeatures(
-        uv=torch.cat(uts), level=torch.cat(lvls), angle=torch.cat(angs),
-        score=torch.cat(scs), desc=torch.cat(descs), valid=torch.cat(vals))
+    if img.ndim != 2:
+        raise ValueError(f"expected an [H, W] image, got {tuple(img.shape)}")
+    f = extract_orb_batch(img[None], cfg, device=dev)
+    return OrbFeatures(*(x[0] for x in f))

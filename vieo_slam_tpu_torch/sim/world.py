@@ -2,7 +2,8 @@
 
 Port of the pixel-rendering part of vieo_slam_tpu/sim/world.py: a field
 of landmarks with fixed texture stamps, rendered through a pinhole camera
-into grayscale stereo pairs, plus the circle trajectory.  Numpy, with the
+into grayscale views (optionally with a per-pixel depth map, photometric
+noise and brightness drift) and stereo pairs, plus the circle trajectory.  Numpy, with the
 port's own `cameras.project`; the same seed gives the same world and the
 same images as the JAX package's renderer.
 """
@@ -57,12 +58,23 @@ class SyntheticWorld:
         return self._patches
 
     def render_view(self, cam: cm.Camera, Rcw, tcw, *, bg_level: float = 96.0,
-                    min_depth: float = 0.2) -> np.ndarray:
+                    min_depth: float = 0.2, noise_sigma: float = 0.0,
+                    gain: float = 1.0, bias: float = 0.0, rng=None,
+                    return_depth: bool = False,
+                    depth_outlier_frac: float = 0.0):
         """Grayscale [H, W] f32 view: each visible landmark stamps its
         texture at its projected sub-pixel position (bilinear shift),
-        far to near, over a flat background."""
+        far to near, over a flat background.
+
+        noise_sigma: additive Gaussian photometric noise (drawn from `rng`,
+        a numpy RandomState, or numpy's global generator); gain/bias:
+        brightness drift I' = gain * I + bias; return_depth: also return
+        the per-pixel depth map of an RGB-D sensor (0 = no reading), with
+        depth_outlier_frac of the landmark stamps carrying a corrupted
+        depth."""
         H, W = cam.height, cam.width
         img = np.full((H, W), bg_level, np.float32)
+        depth_map = np.zeros((H, W), np.float32) if return_depth else None
         pc = self.pw @ np.asarray(Rcw).T + np.asarray(tcw)
         uv = cm.project(cam, torch.from_numpy(
             np.ascontiguousarray(pc, np.float32))).numpy()
@@ -73,6 +85,10 @@ class SyntheticWorld:
                & (uv[:, 0] >= h + 1) & (uv[:, 0] < W - h - 2)
                & (uv[:, 1] >= h + 1) & (uv[:, 1] < H - h - 2))
         order = np.argsort(-pc[vis, 2], kind="stable")
+        if depth_map is not None and depth_outlier_frac > 0:
+            r_out = rng if rng is not None else np.random
+            outlier = r_out.rand(len(self.pw)) < depth_outlier_frac
+            out_scale = 1.0 + (r_out.rand(len(self.pw)) - 0.3)
         for li in np.nonzero(vis)[0][order]:
             u, v = uv[li]
             iu, iv = int(np.floor(u)), int(np.floor(v))
@@ -85,7 +101,20 @@ class SyntheticWorld:
             sh = ((1 - fv) * (1 - fu) * p11 + (1 - fv) * fu * p10
                   + fv * (1 - fu) * p01 + fv * fu * p00)
             img[iv - h + 1: iv + P - h + 1, iu - h + 1: iu + P - h + 1] = sh
-        return np.clip(img, 0.0, 255.0).astype(np.float32)
+            if depth_map is not None:
+                z = pc[li, 2]
+                if depth_outlier_frac > 0 and outlier[li]:
+                    z = z * out_scale[li]
+                depth_map[iv - h + 1: iv + P - h + 1,
+                          iu - h + 1: iu + P - h + 1] = z
+        img = gain * img + bias
+        if noise_sigma > 0:
+            r = rng if rng is not None else np.random
+            img = img + r.randn(H, W).astype(np.float32) * noise_sigma
+        img = np.clip(img, 0.0, 255.0).astype(np.float32)
+        if return_depth:
+            return img, depth_map
+        return img
 
     def render_stereo(self, cam: cm.Camera, Rcw, tcw, baseline: float, **kw):
         """Rectified stereo pair: right camera displaced +baseline along

@@ -1,8 +1,10 @@
 """System facade: the public entry point of the port.
 
-Port of the synchronous stereo part of vieo_slam_tpu/system.py: tracking
-runs per frame; local mapping runs at keyframe insertion, inline; the
-tracker then rebases its pose on the corrected keyframe.  The async
+Port of the synchronous part of vieo_slam_tpu/system.py for the three
+vision sensor modes (stereo, RGB-D, monocular; the frame's depth decides
+how the tracker initializes): tracking runs per frame; local mapping runs
+at keyframe insertion, inline; the tracker then rebases its pose on the
+corrected keyframe.  The async
 mapping worker, global BA, loop closing and map save/load come with their
 slices.
 """
@@ -10,6 +12,7 @@ slices.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional
 
 import numpy as np
@@ -24,8 +27,15 @@ from .utils.device import resolve_device
 from .utils.metrics import metrics
 
 
+class SensorMode(enum.Enum):
+    MONOCULAR = 0
+    STEREO = 1
+    RGBD = 2
+
+
 @dataclasses.dataclass
 class SystemConfig:
+    sensor: SensorMode = SensorMode.STEREO
     map: MapConfig = dataclasses.field(default_factory=MapConfig)
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
     mapper: LocalMappingConfig = dataclasses.field(
@@ -33,7 +43,7 @@ class SystemConfig:
 
 
 class System:
-    """Synchronous stereo SLAM on one device (default: the GPU)."""
+    """Synchronous visual SLAM on one device (default: the GPU)."""
 
     def __init__(self, cam: cm.Camera, bf: float,
                  cfg: Optional[SystemConfig] = None, device=None):
