@@ -9,29 +9,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build: compiles every CUDA kernel of the port from csrc/ (nvcc,
      sm_90a, one process per source, all in parallel).
   3. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, at the shapes the full-width main path gives it (B1 and
-     B2 bit-exact, B3 and B4 identical integers, B5 identical descriptor
-     bits and angles within 1e-6 rad), a call timed with CUDA events and
-     the kernel alone read from torch.profiler.
+     on the card, at the shapes the full-width main path gives it (B1, for
+     the 8 levels of one image and the 16 of a stereo pair in one launch
+     each, and B2 bit-exact, B3 and B4 identical integers, B5 identical
+     descriptor bits and angles within 1e-6 rad), a call timed with CUDA
+     events, the kernels alone read from torch.profiler, and the PyTorch
+     operators that the wrappers of B1 and B4 call around their launch.
   4. known configuration: the 640x480 / 600-feature / 4-level stereo
      sequence of tests/test_image_e2e.py, 40 frames through
      build_stereo_frame + System.track_frame; must hold that test's bars
      (0 LOST, ATE RMSE < 0.02 m, >= 5 keyframes, > 200 landmarks).
   5. full width (the main path): 752x480, 1200 features, 8 levels, a
      4096-landmark tracking slab, 30 stereo frames.  Launch counters are
-     zeroed just before and read just after; kernels B1-B4 must have run;
-     0 LOST.
+     zeroed just before and read just after; B1 must have run exactly once
+     per frame (all 16 level images in one launch), B2-B4 at all; 0 LOST.
   6. RGB-D full width: the same world, trajectory and sizes with the depth
      map of render_view(return_depth=True) and the tail kernel B5 on, 30
      frames.  Counters zeroed before and read after: B5 must have run once
-     per frame, B1, B3 and B4 at all; 0 LOST, ATE RMSE < 0.02 m, >= 5
-     keyframes, > 200 landmarks.  Then the extraction time of these images
+     per frame, B1 once per frame, B3 and B4 at all; 0 LOST, ATE RMSE
+     < 0.02 m, >= 5 keyframes, > 200 landmarks.  Then the extraction time of these images
      with the tail kernel on and off.
   7. mono known configuration: the monocular row of
      examples/evaluate_ntimes.py (640x480, 1000 features, 4 levels, 2200
      landmarks, circle at 0.35 rad/s, 60 frames, photometric noise and
      brightness drift), tail kernel on.  Counters zeroed before and read
-     after (B5 once per frame; B1, B3, B4 at all); the two-view
+     after (B5 and B1 once per frame; B3, B4 at all); the two-view
      initialization must succeed, no later frame be LOST and the
      scale-aligned ATE RMSE stay under 0.02 m.
   8. profile: the last 6 frames of a 14-frame full-width stereo run under
@@ -131,6 +133,19 @@ def device_ms(torch, fn, kernel, reps=10):
     return us / reps / 1e3 if us else None
 
 
+def aten_ops(torch, fn):
+    """{PyTorch operator: calls} that one fn() calls on the host (what a
+    wrapper does around its launch), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("aten::")}
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate."""
@@ -139,13 +154,20 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# Operations per pixel of FAST-9/16 at two thresholds + 3x3 NMS + blend,
-# counted for the least implementation: 16 circle differences; per
-# threshold 32 comparisons, 32 ops packing them into two 16-bit masks, 24
-# for the two 9-run tests by doubling, 96 for the exceedance sums (sub,
-# max, add per tap and sign) and max + select; then 2 x (8 max + compare
-# + select) for the NMS and compare + add + select for the blend.
-B1_OPS_PER_PX = 16 + 2 * (32 + 32 + 24 + 96 + 2) + 2 * 10 + 3
+# FAST-9/16 at two thresholds + 3x3 NMS + blend, counted for the least
+# implementation, whose work follows the data (b1_work counts it):
+#  - every pixel: the compass reject (any 9 consecutive circle positions
+#    hold two of the taps 0, 4, 8, 12) -- 4 differences, 8 comparisons, 6
+#    adds, 2 comparisons and an or;
+#  - every pixel that passes it: the other 12 differences and, per
+#    threshold, 32 comparisons, 32 ops packing them into two 16-bit masks
+#    and 24 for the two 9-run tests by doubling;
+#  - every corner, per threshold: 96 for the exceedance sums (sub, max, add
+#    per tap and sign), their max, 8 max + compare + select for the NMS,
+#    and compare + add + select for the blend.
+B1_REJECT_OPS = 4 + 8 + 6 + 2 + 1
+B1_TEST_OPS = 12 + 2 * (32 + 32 + 24)
+B1_SCORE_OPS = 96 + 1 + 10 + 3
 # Per candidate pair of the Hamming best-2: 8 XOR, 8 popcount, 7 adds,
 # the row best/second update (3) and the column minimum (1).
 HAMMING_OPS = 27
@@ -187,9 +209,32 @@ def scene(n_frames, width, world_cfg=None, omega=0.25):
 # ---------------------------------------------------------------------------
 
 
+def b1_work(torch, levels, th_hi, th_lo):
+    """(pixels, pixels that pass the compass reject at the lower threshold,
+    corners summed over the two thresholds) of a list of images: what the
+    operations of B1 follow."""
+    import torch.nn.functional as F
+
+    from vieo_slam_tpu_torch.ops import cuda_fast
+
+    px = survivors = corners = 0
+    th = min(th_hi, th_lo)
+    for im in levels:
+        h, w = im.shape
+        p = F.pad(im[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
+        d = torch.stack([p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - im
+                         for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0))])
+        keep = ((d > th).sum(0) >= 2) | ((d < -th).sum(0) >= 2)
+        px += im.numel()
+        survivors += int(keep.sum())
+        corners += sum(int((s > 0).sum()) for s in
+                       cuda_fast.fast_score_maps(im, (th_hi, th_lo)))
+    return px, survivors, corners
+
+
 def check_kernels(torch, dev):
-    from vieo_slam_tpu_torch.ops import cuda_fast, cuda_gather, cuda_matching
-    from vieo_slam_tpu_torch.ops import cuda_tail, matching, orb
+    from vieo_slam_tpu_torch.ops import cuda_build, cuda_fast, cuda_gather
+    from vieo_slam_tpu_torch.ops import cuda_matching, cuda_tail, matching, orb
 
     cam, bf, world, ts, Rcw, tcw, _ = scene(1, 752)
     cfg = orb.OrbConfig(n_features=1200, n_levels=8)
@@ -198,34 +243,56 @@ def check_kernels(torch, dev):
     pyramid = orb.build_pyramid(img, cfg)
     rows = {}
 
-    # B1: FAST + NMS + blend at the 8 level shapes of one image.
+    # B1: FAST + NMS + blend at the 8 level shapes of one image, and of
+    # the stereo pair (16 maps), each in one launch; and the lists of the
+    # known and mono cells (4 levels of 640x480, one image and a pair).
     th = (cfg.fast_threshold, cfg.fast_min_threshold)
+    pair = pyramid + orb.build_pyramid(torch.from_numpy(right).to(dev), cfg)
+    cam4, _, _, _, Rcw4, tcw4, _ = scene(1, 640)
+    cfg4 = orb.OrbConfig(n_features=600, n_levels=4)
+    pair4 = [lv for x in world.render_stereo(cam4, Rcw4[0], tcw4[0], BASELINE)
+             for lv in orb.build_pyramid(torch.from_numpy(x).to(dev), cfg4)]
     err = 0.0
-    for im in pyramid:
-        got = cuda_fast.fast_nms_blend(im, *th)
-        want = cuda_fast.fast_nms_blend_plain(im, *th)
-        if not torch.equal(got, want):
-            n = int((got != want).sum())
-            fail(f"B1 differs from its plain version at {tuple(im.shape)} "
-                 f"in {n} pixels")
-        err = max(err, float((got - want).abs().max()))
-    px = sum(im.numel() for im in pyramid)
+    for levels in (pyramid, pair, pair4[:4], pair4):
+        n0 = cuda_build.LAUNCHES["fast_nms_blend"]
+        got = cuda_fast.fast_nms_blend_multi(levels, *th)
+        if cuda_build.LAUNCHES["fast_nms_blend"] != n0 + 1:
+            fail(f"B1 took more than one launch for {len(levels)} levels")
+        want = cuda_fast.fast_nms_blend_multi_plain(levels, *th)
+        for im, g, w in zip(levels, got, want):
+            if not torch.equal(g, w):
+                fail(f"B1 differs from its plain version at "
+                     f"{tuple(im.shape)} of {len(levels)} levels in "
+                     f"{int((g != w).sum())} pixels")
+            err = max(err, float((g - w).abs().max()))
+    px, survivors, corners = b1_work(torch, pyramid, *th)
     rows["fast_nms_blend"] = dict(
-        device_ms=device_ms(torch, lambda: [cuda_fast.fast_nms_blend(
-            im, *th) for im in pyramid], "fast_nms_blend_kernel"),
-        ms=time_ms(torch, lambda: [cuda_fast.fast_nms_blend(im, *th)
-                                   for im in pyramid]),
-        plain_ms=time_ms(torch, lambda: [cuda_fast.fast_nms_blend_plain(
-            im, *th) for im in pyramid], reps=10),
-        max_abs_err=err, bound=bound(8 * px, B1_OPS_PER_PX * px),
-        shapes=[tuple(im.shape) for im in pyramid])
+        device_ms=device_ms(torch, lambda: cuda_fast.fast_nms_blend_multi(
+            pyramid, *th), "fast_nms_blend_kernel"),
+        ms=time_ms(torch, lambda: cuda_fast.fast_nms_blend_multi(pyramid,
+                                                                 *th)),
+        pair_device_ms=device_ms(
+            torch, lambda: cuda_fast.fast_nms_blend_multi(pair, *th),
+            "fast_nms_blend_kernel"),
+        pair_ms=time_ms(torch, lambda: cuda_fast.fast_nms_blend_multi(pair,
+                                                                      *th)),
+        aten_ops=aten_ops(torch, lambda: cuda_fast.fast_nms_blend_multi(
+            pair, *th)),
+        plain_ms=time_ms(torch, lambda: cuda_fast.fast_nms_blend_multi_plain(
+            pyramid, *th), reps=10),
+        max_abs_err=err,
+        bound=bound(8 * px, B1_REJECT_OPS * px + B1_TEST_OPS * survivors
+                    + B1_SCORE_OPS * corners),
+        shapes=[tuple(im.shape) for im in pyramid], survivors=survivors,
+        corners=corners)
 
     # B2: 53x53 tail patches around this image's selected keypoints (1200
     # in all), the first few of every level moved onto the image border.
     centers = []
     for lv, im in enumerate(pyramid):
         n_l = int(cfg.features_per_level[lv])
-        uv, _, _ = orb.select_keypoints(orb._blended_score(im, cfg), n_l, cfg)
+        uv, _, _ = orb.select_keypoints(cuda_fast.fast_nms_blend(im, *th), n_l,
+                                        cfg)
         h, w = im.shape
         uv = uv.clone()
         uv[:4] = torch.tensor([[0, 0], [w - 1, h - 1], [3, h - 1],
@@ -266,7 +333,7 @@ def check_kernels(torch, dev):
     cand = int(mask.sum())
     rows["fused_best2"] = dict(
         device_ms=device_ms(torch, lambda: cuda_matching.fused_best2(
-            fl.desc, fr.desc, mask), "best2_kernel"),
+            fl.desc, fr.desc, mask), "best2_"),
         ms=time_ms(torch, lambda: cuda_matching.fused_best2(
             fl.desc, fr.desc, mask)),
         plain_ms=time_ms(torch, lambda: cuda_matching.fused_best2_plain(
@@ -302,9 +369,11 @@ def check_kernels(torch, dev):
     cand = int(cuda_matching.projection_mask(*args[2:]).sum())
     rows["fused_projection_best2"] = dict(
         device_ms=device_ms(torch, lambda: cuda_matching.
-                            fused_projection_best2(*args), "best2_kernel"),
+                            fused_projection_best2(*args), "best2_"),
         ms=time_ms(torch, lambda: cuda_matching.fused_projection_best2(
             *args)),
+        aten_ops=aten_ops(torch, lambda: cuda_matching.
+                          fused_projection_best2(*args)),
         plain_ms=time_ms(torch, lambda: cuda_matching.
                          fused_projection_best2_plain(*args), reps=10),
         max_abs_err=float(err),
@@ -497,12 +566,13 @@ def extract_ms(torch, dev, cfg, images):
     return 1e3 * float(np.median(times))
 
 
-def check_counts(phase, launches, n_frames, at_all):
-    """The tail kernel ran once per frame and each of `at_all` at least
+def check_counts(phase, launches, exact, at_all):
+    """Each kernel of `exact` ran exactly that often (B1 and, where it is
+    on, the tail kernel: once per frame) and each of `at_all` at least
     once in the run the counts were read from."""
-    if launches["tail_fused"] != n_frames:
-        fail(f"{phase}: tail_fused launched {launches['tail_fused']} times "
-             f"in {n_frames} frames")
+    for k, n in exact.items():
+        if launches[k] != n:
+            fail(f"{phase}: {k} launched {launches[k]} times, expected {n}")
     idle = [k for k in at_all if launches[k] == 0]
     if idle:
         fail(f"{phase}: kernels never launched: {idle}")
@@ -531,7 +601,7 @@ def summarize_profile(prof, wall_s, n_frames):
     launches = sum(e.count for e in on_dev)
     ours_ms = sum(dev_us(e) for e in on_dev if any(
         k in e.key for k in ("fast_nms_blend_kernel", "gather_patches_kernel",
-                             "best2_kernel", "tail_fused_kernel"))) / 1e3
+                             "best2_", "tail_fused_kernel"))) / 1e3
     waits = {e.key: e.count for e in events
              if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                           "cudaMemcpyAsync", "cudaEventSynchronize")}
@@ -598,6 +668,15 @@ def main():
             f"the kernel on the card (plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
             f"max_abs_err {r['max_abs_err']}, shapes {r['shapes']}")
+    r = rows["fast_nms_blend"]
+    log(f"[3 kernels] fast_nms_blend: the 16 levels of a stereo pair in one "
+        f"launch take {r['pair_ms']:.4f} ms a call, "
+        f"{'not measured' if r['pair_device_ms'] is None else format(r['pair_device_ms'], '.4f')}"
+        f" ms in the kernel")
+    for k in ("fast_nms_blend", "fused_projection_best2"):
+        log(f"[3 kernels] {k}: PyTorch operators in one call of the "
+            f"wrapper{' (stereo pair)' if k == 'fast_nms_blend' else ''}: "
+            f"{rows[k]['aten_ops']}")
     r = rows["tail_fused"]
     log(f"[3 kernels] tail_fused: angles within {r['max_abs_err']:.3g} rad "
         f"of the plain version (bound 1e-6), {r['bit_flips']} descriptor "
@@ -640,9 +719,9 @@ def main():
         f"{np.median(t.sum(1)):.2f}")
     if lost:
         fail(f"full-width run lost track in {lost} frames")
-    idle = [k for k, v in launches.items() if v == 0 and k != "tail_fused"]
-    if idle:
-        fail(f"kernels never launched on the main path: {idle}")
+    check_counts("full width", launches,
+                 {"fast_nms_blend": n_frames, "tail_fused": 0},
+                 ("gather_patches", "fused_best2", "fused_projection_best2"))
 
     # 6. RGB-D full width, tail kernel on: its own counted run
     t0 = time.perf_counter()
@@ -663,8 +742,9 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
     if lost or not res["rmse"] < 0.02 or n_kf < 5 or n_lm <= 200:
         fail("RGB-D full-width run misses its bars")
-    check_counts("RGB-D full width", launches_rgbd, n_frames,
-                 ("fast_nms_blend", "fused_best2", "fused_projection_best2"))
+    check_counts("RGB-D full width", launches_rgbd,
+                 {"fast_nms_blend": n_frames, "tail_fused": n_frames},
+                 ("fused_best2", "fused_projection_best2"))
     ext = [with_tail_kernel(m, lambda: extract_ms(torch, dev, cfg,
                                                   images[warm:warm + 10]))
            for m in ("on", "off", "off", "on")]
@@ -693,8 +773,9 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
     if first < 0 or lost or not res["rmse"] < 0.02:
         fail("mono known configuration misses its bars")
-    check_counts("mono known", launches_mono, n_mono,
-                 ("fast_nms_blend", "fused_best2", "fused_projection_best2"))
+    check_counts("mono known", launches_mono,
+                 {"fast_nms_blend": n_mono, "tail_fused": n_mono},
+                 ("fused_best2", "fused_projection_best2"))
 
     # 8. where the time goes: the last frames of a shorter full-width run
     # under torch.profiler (after the counted runs, so it adds no launches
@@ -731,7 +812,9 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None,
-            "device_ms": r["device_ms"]})
+            "device_ms": r["device_ms"],
+            **{x: r[x] for x in ("pair_ms", "pair_device_ms", "candidates",
+                                 "survivors", "corners") if x in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Kernels B1-B5 on the GPU against their plain PyTorch versions, at the
 edge shapes that chip_smoke.py's main-path shapes do not reach: images
-smaller than one tile, ragged tiles, empty inputs, all-masked rows and
-columns, many exact Hamming ties, more columns than a block has threads;
+smaller than one tile, ragged tiles, many levels in one launch and more
+than one launch takes, empty inputs, all-masked rows and columns, many
+exact Hamming ties, more columns than one shared-memory tile, rows that do
+not fill a block, every cell a candidate, inputs the wrapper has to cast;
 for the tail kernel B5 one keypoint, odd counts, one level, an empty
 level, more levels than one launch takes, centers on and outside the
 border and an image as narrow as the window.
@@ -58,6 +60,59 @@ def test_fast_nms_blend(dev, shape):
     assert torch.equal(got, want)
 
 
+FAST_MULTI_CASES = {
+    # name: [(H, W), ...]
+    "tiny_among_large": [(97, 131), (1, 1), (200, 310), (2, 3), (30, 30),
+                         (31, 61)],
+    "full_struct": [(20 + i, 45 - i) for i in range(32)],
+    "two_launches": [(20 + i, 45 - i) for i in range(33)],
+    "stereo_pair": [(round(120 / 1.2 ** lv), round(188 / 1.2 ** lv))
+                    for lv in range(8) for _ in range(2)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FAST_MULTI_CASES))
+def test_fast_nms_blend_multi(dev, case):
+    rng = np.random.RandomState(len(case))
+    imgs = []
+    for H, W in FAST_MULTI_CASES[case]:
+        img = rng.rand(H, W).astype(np.float32) * 220 + 10
+        n = max(H * W // 50, 1)
+        img[rng.randint(0, H, n), rng.randint(0, W, n)] = 255.0
+        imgs.append(torch.from_numpy(img).to(dev))
+    n0 = cuda_build.LAUNCHES["fast_nms_blend"]
+    got = cuda_fast.fast_nms_blend_multi(imgs, 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["fast_nms_blend"] - n0 \
+        == -(-len(imgs) // cuda_fast.MAX_LEVELS)
+    want = cuda_fast.fast_nms_blend_multi_plain(imgs, 20.0, 7.0)
+    assert len(got) == len(want) == len(imgs)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert any((g > 1e4).any() for g in got)
+
+
+def test_fast_nms_blend_thresholds_swapped(dev):
+    """th_hi < th_lo: the high test cannot be skipped where the low fails."""
+    rng = np.random.RandomState(5)
+    img = rng.rand(70, 90).astype(np.float32) * 220 + 10
+    x = torch.from_numpy(img).to(dev)
+    assert torch.equal(cuda_fast.fast_nms_blend(x, 7.0, 20.0),
+                       cuda_fast.fast_nms_blend_plain(x, 7.0, 20.0))
+
+
+def test_fast_nms_blend_rejects_bad_arguments(dev):
+    img = torch.zeros((60, 80), device=dev)
+    with pytest.raises(TypeError, match=r"level_imgs\[1\]"):
+        cuda_fast.fast_nms_blend_multi([img, img.double()], 20.0, 7.0)
+    with pytest.raises(ValueError, match=r"level_imgs\[1\]"):
+        cuda_fast.fast_nms_blend_multi([img, img.T], 20.0, 7.0)
+    with pytest.raises(ValueError, match=r"level_imgs\[1\]"):
+        cuda_fast.fast_nms_blend_multi([img, img.cpu()], 20.0, 7.0)
+    with pytest.raises(ValueError, match=r"level_imgs\[0\]"):
+        cuda_fast.fast_nms_blend_multi([img[:0]], 20.0, 7.0)
+
+
 @pytest.mark.parametrize("radius", [15, 26])
 def test_gather_patches(dev, radius):
     rng = np.random.RandomState(radius)
@@ -78,15 +133,22 @@ def descriptors(rng, n, n_unique):
     return words[rng.randint(0, n_unique, n)].view(np.int32)
 
 
-@pytest.mark.parametrize("M,N", [(1, 1), (37, 2000), (1200, 1200), (0, 5),
-                                 (5, 0)])
-def test_fused_best2(dev, M, N):
+# (M, N, mask density): one cell; fewer rows than a block and a ragged
+# mask row (N % 4 != 0); the stereo shape; empty sides; more columns than
+# one shared-memory tile (2048), ragged and aligned; many blocks (16 rows
+# each) with rows that do not fill the last one; every cell a candidate.
+@pytest.mark.parametrize("M,N,density", [
+    (1, 1, 0.3), (37, 2001, 0.3), (1200, 1200, 0.3), (0, 5, 0.3),
+    (5, 0, 0.3), (70, 4099, 0.05), (3, 4100, 0.3), (2113, 300, 0.02),
+    (4229, 200, 0.02), (150, 260, 1.0)])
+def test_fused_best2(dev, M, N, density):
     rng = np.random.RandomState(M + N)
     a = torch.from_numpy(descriptors(rng, M, max(M // 3, 1))).to(dev)
     b = torch.from_numpy(descriptors(rng, N, max(N // 3, 1))).to(dev)
-    mask = rng.rand(M, N) < 0.3
-    mask[: M // 10] = False
-    mask[:, : N // 10] = False
+    mask = rng.rand(M, N) < density
+    if density < 1.0:
+        mask[: M // 10] = False
+        mask[:, : N // 10] = False
     mask = torch.from_numpy(mask).to(dev)
     want = cm.fused_best2_plain(a, b, mask)
     if M and N:
@@ -98,9 +160,13 @@ def test_fused_best2(dev, M, N):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("M,N", [(1, 1), (530, 2100), (4096, 1200), (0, 7),
-                                 (9, 0)])
-def test_fused_projection_best2(dev, M, N):
+# (M, N, radius): as above for B4; with a radius of 2000 pixels every
+# cell of a valid row and column is a candidate, with 0.5 almost none.
+@pytest.mark.parametrize("M,N,base_radius", [
+    (1, 1, 15.0), (530, 2100, 15.0), (4096, 1200, 15.0), (0, 7, 15.0),
+    (9, 0, 15.0), (90, 4101, 15.0), (2113, 333, 15.0), (4229, 1200, 15.0),
+    (1200, 1200, 15.0), (300, 700, 2000.0), (500, 600, 0.5)])
+def test_fused_projection_best2(dev, M, N, base_radius):
     rng = np.random.RandomState(M * 7 + N)
     kp_uv = (rng.rand(N, 2) * [752, 480]).astype(np.float32)
     pick = rng.randint(0, max(N, 1), M)
@@ -111,7 +177,8 @@ def test_fused_projection_best2(dev, M, N):
         proj_uv[: M // 8] = kp_uv[pick[: M // 8]] + np.float32(15.0) \
             * np.array([[0.6, 0.8]], np.float32)
     level_a = rng.randint(0, 8, M).astype(np.int32)
-    radius = (np.float32(15.0) * np.float32(1.2) ** level_a).astype(np.float32)
+    radius = (np.float32(base_radius)
+              * np.float32(1.2) ** level_a).astype(np.float32)
     radius[: min(M, 3)] = -1.0
     args = [torch.from_numpy(x).to(dev) for x in (
         descriptors(rng, M, max(M // 2, 1)), descriptors(rng, N,
@@ -127,6 +194,34 @@ def test_fused_projection_best2(dev, M, N):
         got = cm.fused_projection_best2(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_fused_projection_best2_casts_and_copies(dev):
+    """float and int64 levels, a strided uv: cast or copied by the wrapper,
+    same answer as the native dtypes; flags must be bool."""
+    rng = np.random.RandomState(2)
+    M, N = 200, 150
+    kp_uv = (rng.rand(N, 2) * [300, 200]).astype(np.float32)
+    pick = rng.randint(0, N, M)
+    proj_uv = kp_uv[pick] + rng.randn(M, 2).astype(np.float32) * 4
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    native = [t(descriptors(rng, M, 60)), t(descriptors(rng, N, 60)),
+              t(proj_uv), t(np.full(M, 12.0, np.float32)),
+              t(rng.randint(0, 4, M).astype(np.int32)), t(rng.rand(M) > 0.1),
+              t(kp_uv), t(rng.randint(0, 4, N).astype(np.int32)),
+              t(rng.rand(N) > 0.1), 1]
+    want = cm.fused_projection_best2_plain(*native)
+    other = list(native)
+    other[2] = t(np.repeat(proj_uv, 2, axis=1))[:, ::2]
+    assert not other[2].is_contiguous()
+    other[4], other[7] = native[4].float(), native[7].long()
+    for args in (native, other):
+        for g, w in zip(cm.fused_projection_best2(*args), want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="uv_a"):
+        cm.fused_projection_best2(*native[:2], native[2][:-1], *native[3:])
+    with pytest.raises(TypeError, match="valid_b"):
+        cm.fused_projection_best2(*native[:8], native[8].float(), 1)
 
 
 TAIL_CASES = {

@@ -119,6 +119,71 @@ def test_fused_projection_best2_plain_matches_pallas(M, N):
     assert (got[1].numpy() < tk.INF).sum() > M // 2
 
 
+def crafted_projection_case():
+    """12 rows x 10 columns with every special case of the contract."""
+    rng = np.random.RandomState(42)
+    N, M = 10, 12
+    kuv = np.array([[50 + 40 * j, 60.0] for j in range(N)], np.float32)
+    kuv[4] = kuv[3] + [1.0, 0.0]            # columns 3 and 4: one window
+    kd = descriptors(rng, N)
+    kd[4] = kd[3]                           # ... and one descriptor: a tie
+    klv = np.zeros(N, np.int32)
+    kv = np.ones(N, bool)
+    kv[7] = False                           # invalid column
+    kuv[9] = [5000.0, 5000.0]               # column no row comes near
+    pick = np.array([0, 1, 2, 3, 3, 5, 6, 7, 8, 8, 1, 2])
+    puv = kuv[pick] + np.float32(0.5)
+    pd = kd[pick].copy()
+    pd[10, 0] ^= np.uint32(0b111)           # row 10: a worse match of col 1
+    plv = np.zeros(M, np.int32)
+    pv = np.ones(M, bool)
+    pv[11] = False                          # all-masked row (invalid)
+    puv[5] = [-4000.0, 7.0]                 # all-masked row (no window)
+    radius = np.full(M, 10.0, np.float32)
+    return pd, kd, puv, radius, plv, pv, kuv, klv, kv
+
+
+@pytest.mark.parametrize("form", ["native", "strided_uv", "float_levels"])
+def test_fused_projection_best2_native_inputs(form):
+    """Inputs as the wrapper takes them natively (f32 uv and radius, int32
+    levels, bool flags), and the forms it converts itself: a strided uv is
+    copied, float levels are cast."""
+    pd, kd, puv, radius, plv, pv, kuv, klv, kv = crafted_projection_case()
+    want = jpm.fused_projection_best2(
+        jnp.asarray(pd), jnp.asarray(kd), jnp.asarray(puv),
+        jnp.asarray(radius), jnp.asarray(plv), jnp.asarray(pv),
+        jnp.asarray(kuv), jnp.asarray(klv), jnp.asarray(kv), 1.0,
+        interpret=True)
+    args = [t32(pd), t32(kd), torch.from_numpy(puv), torch.from_numpy(radius),
+            torch.from_numpy(plv), torch.from_numpy(pv),
+            torch.from_numpy(kuv), torch.from_numpy(klv),
+            torch.from_numpy(kv)]
+    assert args[4].dtype == torch.int32 and args[5].dtype == torch.bool
+    if form == "strided_uv":
+        args[2] = torch.from_numpy(np.repeat(puv, 2, axis=1))[:, ::2]
+        args[6] = torch.from_numpy(np.repeat(kuv, 2, axis=1))[:, ::2]
+        assert not args[2].is_contiguous()
+    elif form == "float_levels":
+        args[4], args[7] = args[4].float(), args[7].float()
+    got = tk.fused_projection_best2(*args, 1.0)
+    assert_same(got, want)
+    idx, best, second, col = (g.numpy() for g in got)
+    assert idx[3] == 3 and best[3] == 0 and second[3] == 0   # column tie
+    assert col[3] == 3 and col[8] == 8                       # row ties
+    assert col[1] == 1 and best[10] == 3 and idx[10] == 1
+    assert col[7] == 0 and col[9] == 0                       # empty columns
+    for row in (5, 11):                                      # masked rows
+        assert (idx[row], best[row], second[row]) == (0, tk.INF, tk.INF)
+
+
+def test_native_passes_tensors_through():
+    """A tensor of the kernel's dtype and layout is not copied."""
+    x = torch.zeros(5, 2)
+    assert tk._native(x, torch.float32) is x
+    assert tk._native(x[:, 0], torch.float32).is_contiguous()
+    assert tk._native(x.double(), torch.float32).dtype == torch.float32
+
+
 @pytest.mark.parametrize("ratio,level_tolerance", [(1.0, 1), (0.8, 0)])
 def test_search_by_projection(ratio, level_tolerance):
     (puv, plv, pd, pv, kuv, klv, kd, kv) = projection_case(7, 400, 300)

@@ -97,6 +97,44 @@ def test_fast_nms_blend_bit_exact(shape):
     np.testing.assert_array_equal(s_lo.numpy(), np.asarray(j_lo))
 
 
+@pytest.mark.parametrize("n_images,n_levels", [(1, 3), (2, 3), (1, 8),
+                                               (2, 8)])
+def test_fast_nms_blend_multi_bit_exact(n_images, n_levels):
+    """All levels of all images in one call: each map equals the Pallas
+    kernel in interpret mode and the XLA composition on that level."""
+    cfg = torb.OrbConfig(n_levels=n_levels)
+    levels = []
+    for b in range(n_images):
+        img = corner_image(96, 128, seed=10 * n_levels + b)
+        levels += torb.build_pyramid(torch.from_numpy(img), cfg)
+    assert len(levels) == n_images * n_levels
+    got = cuda_fast.fast_nms_blend_multi(levels, 20.0, 7.0)
+    assert len(got) == len(levels)
+    for im, g in zip(levels, got):
+        x = jnp.asarray(im.numpy())
+        assert g.shape == im.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(
+            jorb._blended_score(x, jorb.OrbConfig())))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(
+            pallas_fast.fast_nms_blend(x, 20.0, 7.0, interpret=True)))
+    assert (got[0] > 1e4).any()
+    assert cuda_fast.fast_nms_blend_multi([], 20.0, 7.0) == []
+
+
+@pytest.mark.parametrize("n_features,n_levels", [(300, 3), (600, 8)])
+def test_extract_orb_batch_equals_per_image(n_features, n_levels):
+    """The stereo pair through one multi-level FAST call equals the two
+    images extracted one by one, bit for bit."""
+    cfg = torb.OrbConfig(n_features, n_levels)
+    pair = np.stack([textured_image(seed=3), textured_image(seed=4)])
+    both = torb.extract_orb_batch(pair, cfg, device="cpu")
+    for b in range(2):
+        one = torb.extract_orb(pair[b], cfg, device="cpu")
+        assert int(one.valid.sum()) > 0.5 * n_features
+        for f_both, f_one in zip(both, one):
+            assert torch.equal(f_both[b], f_one)
+
+
 @pytest.mark.parametrize("radius", [15, 26])
 def test_gather_patches_exact(radius):
     rng = np.random.RandomState(3)

@@ -46,12 +46,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "fast_nms.cu": {"vs_fast_nms_blend": (_P, _P, _I, _I, _F, _F, _F, _P)},
+    "fast_nms.cu": {"vs_fast_nms_blend_multi": (_P, _I, _P, _F, _F, _F, _P)},
     "gather.cu": {"vs_gather_patches": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "matching.cu": {
-        "vs_fused_best2": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-        "vs_fused_projection_best2": (_P, _P, _P, _P, _F, _I, _I, _P, _P, _P,
-                                      _P, _P),
+        "vs_fused_best2": (_P, _P, _P, _I, _I, _P, _P),
+        "vs_fused_projection_best2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                                      _I, _I, _P, _P),
     },
     "tail.cu": {"vs_tail_fused": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)},
 }
@@ -151,3 +151,11 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: must be contiguous")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def require_all(ts: list, name: str, dtype: torch.dtype, shape: tuple,
+                device: torch.device):
+    """`require` for every tensor of a list; an error names the offending
+    element."""
+    for i, t in enumerate(ts):
+        require(t, f"{name}[{i}]", dtype, shape, device)

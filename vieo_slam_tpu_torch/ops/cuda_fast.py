@@ -1,14 +1,16 @@
-"""FAST-9/16 + 3x3 NMS + threshold blend for one pyramid level (kernel B1).
+"""FAST-9/16 + 3x3 NMS + threshold blend of pyramid levels (kernel B1).
 
-`fast_nms_blend` replaces vieo_slam_tpu/ops/pallas_fast.py:fast_nms_blend.
-On a CUDA tensor it launches the hand-written kernel in
-`csrc/fast_nms.cu`; on a CPU tensor it runs the plain PyTorch composition
-below (`fast_nms_blend_plain`), which is also what the kernel is held to,
-bit for bit.
+`fast_nms_blend` replaces vieo_slam_tpu/ops/pallas_fast.py:fast_nms_blend;
+`fast_nms_blend_multi` is the same for a list of images (all levels of all
+images of a frame) in one launch.  On CUDA tensors they launch the
+hand-written kernel in `csrc/fast_nms.cu`; on CPU tensors they run the
+plain PyTorch composition below (`fast_nms_blend_plain`, level by level),
+which is also what the kernel is held to, bit for bit.
 
 What bounds it on the H100 and what the design does about it: see the
-note at the top of `csrc/fast_nms.cu` (operation-bound, one pass over
-shared-memory tiles, no [16, H, W] circle stack in device memory).
+note at the top of `csrc/fast_nms.cu` (one launch, a cheap reject and the
+corner test before the score, no [16, H, W] circle stack in device
+memory).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+
+MAX_LEVELS = 32                # images per launch (fast_nms.cu)
 
 # 16-point Bresenham circle of radius 3 (clockwise from 12 o'clock),
 # (dx, dy) with x right / y down -- the standard FAST-9/16 test set.
@@ -83,18 +87,46 @@ def fast_nms_blend_plain(img: torch.Tensor, th_hi: float, th_lo: float,
     return torch.where(n_hi > 0, n_hi + boost, n_lo)
 
 
+def fast_nms_blend_multi_plain(level_imgs: list, th_hi: float, th_lo: float,
+                               boost: float = 1e4) -> list[torch.Tensor]:
+    """fast_nms_blend_plain, level by level."""
+    return [fast_nms_blend_plain(im, th_hi, th_lo, boost) for im in level_imgs]
+
+
+def fast_nms_blend_multi(level_imgs: list, th_hi: float, th_lo: float,
+                         boost: float = 1e4) -> list[torch.Tensor]:
+    """Blended keypoint-score maps [H_l, W_l] f32 of a list of images (the
+    pyramid levels of one image, or of several): one kernel launch for up
+    to 32 of them.  On the GPU the maps are views of one allocation."""
+    if not level_imgs:
+        return []
+    if not level_imgs[0].is_cuda:
+        return fast_nms_blend_multi_plain(level_imgs, th_hi, th_lo, boost)
+    dev = level_imgs[0].device
+    cuda_build.require_all(level_imgs, "level_imgs", torch.float32,
+                           (None, None), dev)
+    sizes = [im.shape[0] * im.shape[1] for im in level_imgs]
+    if 0 in sizes:
+        raise ValueError(f"level_imgs[{sizes.index(0)}]: image is empty")
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    lib = cuda_build.library("fast_nms.cu")
+    stream = cuda_build.stream_of(flat)
+    base, o = flat.data_ptr(), 0
+    for a in range(0, len(level_imgs), MAX_LEVELS):
+        chunk = level_imgs[a:a + MAX_LEVELS]
+        table = np.array([(im.data_ptr(), im.shape[0], im.shape[1])
+                          for im in chunk], dtype=np.int64)
+        rc = lib.vs_fast_nms_blend_multi(
+            table.ctypes.data, len(chunk), base + 4 * o, float(th_hi),
+            float(th_lo), float(boost), stream)
+        cuda_build.check(rc, "fast_nms_blend")
+        cuda_build.LAUNCHES["fast_nms_blend"] += 1
+        o += sum(sizes[a:a + MAX_LEVELS])
+    return [m.view(im.shape) for m, im in zip(flat.split(sizes), level_imgs)]
+
+
 def fast_nms_blend(img: torch.Tensor, th_hi: float, th_lo: float,
                    boost: float = 1e4) -> torch.Tensor:
-    """Blended keypoint-score map [H, W] f32 of one pyramid level."""
-    if not img.is_cuda:
-        return fast_nms_blend_plain(img, th_hi, th_lo, boost)
-    cuda_build.require(img, "img", torch.float32, (None, None))
-    H, W = img.shape
-    out = torch.empty_like(img)
-    lib = cuda_build.library("fast_nms.cu")
-    rc = lib.vs_fast_nms_blend(img.data_ptr(), out.data_ptr(), H, W,
-                               float(th_hi), float(th_lo), float(boost),
-                               cuda_build.stream_of(img))
-    cuda_build.check(rc, "fast_nms_blend")
-    cuda_build.LAUNCHES["fast_nms_blend"] += 1
-    return out
+    """Blended keypoint-score map [H, W] f32 of one pyramid level: the
+    one-image case of `fast_nms_blend_multi`."""
+    return fast_nms_blend_multi([img], th_hi, th_lo, boost)[0]

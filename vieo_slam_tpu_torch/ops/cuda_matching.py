@@ -13,7 +13,8 @@ Contract of both (the Pallas kernels'): returns (best_idx [M] i32,
 best [M] i32, second [M] i32, col_best_row [N] i32).  Rows without a
 candidate give best = second = 1 << 30 and best_idx = 0; ties break to
 the lowest index, on rows and on columns; a column without a candidate
-gives col_best_row = 0.
+gives col_best_row = 0.  On the GPU the four results are views of one
+allocation.
 
 What bounds them on the H100 and what the design does about it: see the
 note at the top of `csrc/matching.cu`.
@@ -26,8 +27,7 @@ import torch
 from . import cuda_build
 
 INF = 1 << 30
-_ROW_BITS = 22          # packed column key: (min(dist, 511) << 22) | row
-_MAX_SHARED_COLS = 12288   # one int of shared memory per column (48 KB)
+_ROW_BITS = 22          # packed column key: (dist << 22) | row
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -97,27 +97,33 @@ def _empty_result(M, N, dev):
 
 
 def _outputs(M, N, dev):
-    idx = torch.empty(M, dtype=torch.int32, device=dev)
-    best = torch.empty(M, dtype=torch.int32, device=dev)
-    second = torch.empty(M, dtype=torch.int32, device=dev)
-    colkey = torch.full((N,), 2 ** 31 - 1, dtype=torch.int32, device=dev)
-    return idx, best, second, colkey
+    """(idx, best, second, col_best_row) as views of one allocation, and
+    the allocation."""
+    buf = torch.empty(3 * M + N, dtype=torch.int32, device=dev)
+    return buf.split((M, M, M, N)), buf
 
 
-def _check_sizes(M, N):
-    if M >= (1 << _ROW_BITS):
+def _native(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` as the kernel reads it.  A tensor of the kernel's dtype that is
+    contiguous passes through untouched; any other is cast or copied here,
+    at the caller's cost."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _check_rows(M):
+    if M > (1 << _ROW_BITS):
         raise ValueError(f"{M} rows exceed the packed column key "
                          f"({1 << _ROW_BITS})")
-    if N > _MAX_SHARED_COLS:
-        raise ValueError(f"{N} columns exceed the kernel's shared-memory "
-                         f"column table ({_MAX_SHARED_COLS})")
 
 
 def fused_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
                 mask: torch.Tensor):
     """Masked Hamming + row best2 + column best row.
 
-    desc_a [M, 8] int32, desc_b [N, 8] int32, mask [M, N] bool."""
+    desc_a [M, 8] int32, desc_b [N, 8] int32, mask [M, N] bool; any number
+    of columns (the kernel tiles them)."""
     if not desc_a.is_cuda:
         return fused_best2_plain(desc_a, desc_b, mask)
     dev = desc_a.device
@@ -125,18 +131,17 @@ def fused_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     cuda_build.require(desc_a, "desc_a", torch.int32, (M, 8), dev)
     cuda_build.require(desc_b, "desc_b", torch.int32, (N, 8), dev)
     cuda_build.require(mask, "mask", torch.bool, (M, N), dev)
-    _check_sizes(M, N)
+    _check_rows(M)
     if M == 0 or N == 0:
         return _empty_result(M, N, dev)
-    idx, best, second, colkey = _outputs(M, N, dev)
+    out, buf = _outputs(M, N, dev)
     lib = cuda_build.library("matching.cu")
     rc = lib.vs_fused_best2(desc_a.data_ptr(), desc_b.data_ptr(),
-                            mask.data_ptr(), M, N, idx.data_ptr(),
-                            best.data_ptr(), second.data_ptr(),
-                            colkey.data_ptr(), cuda_build.stream_of(desc_a))
+                            mask.data_ptr(), M, N, buf.data_ptr(),
+                            cuda_build.stream_of(desc_a))
     cuda_build.check(rc, "fused_best2")
     cuda_build.LAUNCHES["fused_best2"] += 1
-    return idx, best, second, colkey & ((1 << _ROW_BITS) - 1)
+    return out
 
 
 def fused_projection_best2(desc_a, desc_b, uv_a, radius_a, level_a, valid_a,
@@ -145,7 +150,13 @@ def fused_projection_best2(desc_a, desc_b, uv_a, radius_a, level_a, valid_a,
     masked Hamming + row best2 + column best row, with the [M, N] mask
     built inside the kernel.
 
-    radius_a [M] f32 is the per-row pixel radius (already level-scaled)."""
+    radius_a [M] f32 is the per-row pixel radius (already level-scaled).
+    The kernel reads the arguments as they come -- uv and radius f32,
+    levels int32, valid flags bool -- and everything around it (validity,
+    column keys, unpacking) happens on the device in the same call.  A uv,
+    radius or level tensor of another dtype or a non-contiguous one is cast
+    or copied first; the flags must be bool, as the plain version needs
+    them."""
     if not desc_a.is_cuda:
         return fused_projection_best2_plain(
             desc_a, desc_b, uv_a, radius_a, level_a, valid_a, uv_b, level_b,
@@ -154,23 +165,28 @@ def fused_projection_best2(desc_a, desc_b, uv_a, radius_a, level_a, valid_a,
     M, N = desc_a.shape[0], desc_b.shape[0]
     cuda_build.require(desc_a, "desc_a", torch.int32, (M, 8), dev)
     cuda_build.require(desc_b, "desc_b", torch.int32, (N, 8), dev)
-    _check_sizes(M, N)
+    _check_rows(M)
+    side = []           # holds a cast copy until the launch is enqueued
+    for t, name, dtype, shape in (
+            (uv_a, "uv_a", torch.float32, (M, 2)),
+            (radius_a, "radius_a", torch.float32, (M,)),
+            (level_a, "level_a", torch.int32, (M,)),
+            (valid_a, "valid_a", torch.bool, (M,)),
+            (uv_b, "uv_b", torch.float32, (N, 2)),
+            (level_b, "level_b", torch.int32, (N,)),
+            (valid_b, "valid_b", torch.bool, (N,))):
+        if dtype != torch.bool:             # the flags must come as bool
+            t = _native(t, dtype)
+        cuda_build.require(t, name, dtype, shape, dev)
+        side.append(t)
     if M == 0 or N == 0:
         return _empty_result(M, N, dev)
-    am = torch.stack([
-        uv_a[:, 0].float(), uv_a[:, 1].float(),
-        torch.where(valid_a, radius_a.float(),
-                    torch.full_like(radius_a, -1.0, dtype=torch.float32)),
-        level_a.float()], dim=1).contiguous()
-    bm = torch.stack([
-        uv_b[:, 0].float(), uv_b[:, 1].float(), level_b.float(),
-        valid_b.float()], dim=1).contiguous()
-    idx, best, second, colkey = _outputs(M, N, dev)
+    out, buf = _outputs(M, N, dev)
     lib = cuda_build.library("matching.cu")
     rc = lib.vs_fused_projection_best2(
-        desc_a.data_ptr(), desc_b.data_ptr(), am.data_ptr(), bm.data_ptr(),
-        float(level_tolerance), M, N, idx.data_ptr(), best.data_ptr(),
-        second.data_ptr(), colkey.data_ptr(), cuda_build.stream_of(desc_a))
+        desc_a.data_ptr(), desc_b.data_ptr(), *(t.data_ptr() for t in side),
+        float(level_tolerance), M, N, buf.data_ptr(),
+        cuda_build.stream_of(desc_a))
     cuda_build.check(rc, "fused_projection_best2")
     cuda_build.LAUNCHES["fused_projection_best2"] += 1
-    return idx, best, second, colkey & ((1 << _ROW_BITS) - 1)
+    return out

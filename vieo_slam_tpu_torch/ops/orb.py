@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .cuda_fast import FAST_CIRCLE, fast_nms_blend, fast_score_maps, nms3  # noqa: F401
+from .cuda_fast import (FAST_CIRCLE, fast_nms_blend,  # noqa: F401
+                        fast_nms_blend_multi, fast_score_maps, nms3)
 from .cuda_gather import gather_patches
 
 PATCH_RADIUS = 15          # IC_Angle circular patch
@@ -146,12 +147,6 @@ def build_pyramid(img: torch.Tensor, cfg: OrbConfig) -> list[torch.Tensor]:
 # ---------------------------------------------------------------------------
 # FAST score + selection
 # ---------------------------------------------------------------------------
-
-
-def _blended_score(im: torch.Tensor, cfg: OrbConfig) -> torch.Tensor:
-    """Strict/permissive blended, NMS'd FAST score map (selection input):
-    iniThFAST winners boosted above every minThFAST score (kernel B1)."""
-    return fast_nms_blend(im, cfg.fast_threshold, cfg.fast_min_threshold)
 
 
 def _stable_topk(x: torch.Tensor, k: int):
@@ -358,9 +353,9 @@ def _tails(level_imgs: list, level_uvs: list):
 # ---------------------------------------------------------------------------
 
 
-def _select_level(im: torch.Tensor, n_l: int, cfg: OrbConfig):
+def _select_level(score: torch.Tensor, n_l: int, cfg: OrbConfig):
     """select_keypoints on one level's blended score, padded to n_l rows."""
-    uv, s, valid = select_keypoints(_blended_score(im, cfg), n_l, cfg)
+    uv, s, valid = select_keypoints(score, n_l, cfg)
     if uv.shape[0] < n_l:  # tiny levels: pad capacity
         padn = n_l - uv.shape[0]
         uv = torch.nn.functional.pad(uv, (0, 0, 0, padn))
@@ -390,9 +385,10 @@ def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
     """ORB on a batch of same-sized images [B, H, W] (the stereo pair).
 
     Every field of the result has a leading [B] axis and equals the stacked
-    per-image `extract_orb` results bit for bit: pyramid, FAST (kernel B1)
-    and selection run per (level, image), as in the JAX package; with the
-    tail kernel on, the keypoint tail of all images is one launch."""
+    per-image `extract_orb` results bit for bit: pyramid and selection run
+    per (level, image), as in the JAX package; FAST + NMS + blend of every
+    level of every image is one launch of kernel B1; with the tail kernel
+    on, the keypoint tail of all images is one launch too."""
     dev = resolve_device(device)
     imgs = torch.as_tensor(imgs, dtype=torch.float32).to(dev)
     if imgs.ndim != 3:
@@ -400,15 +396,15 @@ def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
     B = imgs.shape[0]
     pyramids = [build_pyramid(imgs[b].contiguous(), cfg) for b in range(B)]
     per_level = cfg.features_per_level
-    meta, sels = [], []                    # (lv, b, level image)
-    for lv in range(cfg.n_levels):
-        n_l = int(per_level[lv])
-        if n_l == 0:
-            continue
-        for b in range(B):
-            im = pyramids[b][lv]
-            meta.append((lv, b, im))
-            sels.append(_select_level(im, n_l, cfg))
+    meta = [(lv, b, pyramids[b][lv])       # (lv, b, level image)
+            for lv in range(cfg.n_levels) if per_level[lv] > 0
+            for b in range(B)]
+    # Strict/permissive blended, NMS'd FAST score maps (selection input):
+    # iniThFAST winners boosted above every minThFAST score.
+    scores = fast_nms_blend_multi([im for _, _, im in meta],
+                                  cfg.fast_threshold, cfg.fast_min_threshold)
+    sels = [_select_level(score, int(per_level[lv]), cfg)
+            for (lv, _, _), score in zip(meta, scores)]
     # Kernel B5 takes all levels of all images in one launch (each block
     # is on its own).  The PyTorch tails run image by image: their
     # vectorized reductions are not row-independent to the last ulp.
