@@ -9,31 +9,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build: compiles every CUDA kernel of the port from csrc/ (nvcc,
      sm_90a, one process per source, all in parallel).
   3. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, at the shapes the full-width main path gives it (B1, for
-     the 8 levels of one image and the 16 of a stereo pair in one launch
-     each, and B2 bit-exact, B3 and B4 identical integers, B5 identical
-     descriptor bits and angles within 1e-6 rad), a call timed with CUDA
-     events, the kernels alone read from torch.profiler, and the PyTorch
-     operators that the wrappers of B1 and B4 call around their launch.
+     on the card, at the shapes the full-width main path gives it (B1 and
+     B2 bit-exact, for the 8 levels of one image and the 16 of a stereo
+     pair in one launch each, and at the 4-level lists of the known and
+     mono cells; B3 and B4 identical integers, B5 identical descriptor
+     bits and angles within 1e-6 rad), a call timed with CUDA events, the
+     kernels alone read from torch.profiler, the PyTorch operators that
+     the wrappers of B1 and B4 call around their launch, and B2's library
+     yardstick (F.grid_sample, nearest, border padding), checked equal.
   4. known configuration: the 640x480 / 600-feature / 4-level stereo
      sequence of tests/test_image_e2e.py, 40 frames through
      build_stereo_frame + System.track_frame; must hold that test's bars
      (0 LOST, ATE RMSE < 0.02 m, >= 5 keyframes, > 200 landmarks).
   5. full width (the main path): 752x480, 1200 features, 8 levels, a
      4096-landmark tracking slab, 30 stereo frames.  Launch counters are
-     zeroed just before and read just after; B1 must have run exactly once
-     per frame (all 16 level images in one launch), B2-B4 at all; 0 LOST.
+     zeroed just before and read just after; B1 and B2 must have run
+     exactly once per frame (all 16 level images in one launch each), B3
+     and B4 at all; 0 LOST.
   6. RGB-D full width: the same world, trajectory and sizes with the depth
      map of render_view(return_depth=True) and the tail kernel B5 on, 30
      frames.  Counters zeroed before and read after: B5 must have run once
-     per frame, B1 once per frame, B3 and B4 at all; 0 LOST, ATE RMSE
+     per frame, B1 once per frame, B2 never, B3 and B4 at all; 0 LOST, ATE RMSE
      < 0.02 m, >= 5 keyframes, > 200 landmarks.  Then the extraction time of these images
      with the tail kernel on and off.
   7. mono known configuration: the monocular row of
      examples/evaluate_ntimes.py (640x480, 1000 features, 4 levels, 2200
      landmarks, circle at 0.35 rad/s, 60 frames, photometric noise and
      brightness drift), tail kernel on.  Counters zeroed before and read
-     after (B5 and B1 once per frame; B3, B4 at all); the two-view
+     after (B5 and B1 once per frame, B2 never; B3, B4 at all); the two-view
      initialization must succeed, no later frame be LOST and the
      scale-aligned ATE RMSE stay under 0.02 m.
   8. profile: the last 6 frames of a 14-frame full-width stereo run under
@@ -232,6 +235,41 @@ def b1_work(torch, levels, th_hi, th_lo):
     return px, survivors, corners
 
 
+def tail_centers(torch, levels, cfg, th):
+    """The tail's centers for a list of level images (the levels of one
+    image or of several, in order): the keypoints selected on each level,
+    the first four moved onto the image border."""
+    from vieo_slam_tpu_torch.ops import cuda_fast, orb
+
+    out = []
+    for i, im in enumerate(levels):
+        n_l = int(cfg.features_per_level[i % cfg.n_levels])
+        uv, _, _ = orb.select_keypoints(cuda_fast.fast_nms_blend(im, *th),
+                                        n_l, cfg)
+        h, w = im.shape
+        uv = uv.clone()
+        uv[:4] = torch.tensor([[0, 0], [w - 1, h - 1], [3, h - 1],
+                               [w - 1, 2]], dtype=uv.dtype, device=im.device)
+        out.append(uv.contiguous())
+    return out
+
+
+def nearest_grid(torch, img, centers, r):
+    """[1, N * d, d, 2] sampling grid of the d x d windows around the
+    clamped centers, normalized for align_corners=True: with
+    F.grid_sample(mode="nearest", padding_mode="border") it gathers what
+    B2 gathers (B2's library yardstick)."""
+    H, W = img.shape
+    d = 2 * r + 1
+    off = torch.arange(-r, r + 1, device=img.device)
+    x = centers[:, 0].long().clamp(0, W - 1)[:, None, None] + off
+    y = centers[:, 1].long().clamp(0, H - 1)[:, None, None] + off[:, None]
+    xn = 2 * x.float() / (W - 1) - 1
+    yn = 2 * y.float() / (H - 1) - 1
+    grid = torch.stack(torch.broadcast_tensors(xn, yn), -1)
+    return grid.reshape(1, -1, d, 2)
+
+
 def check_kernels(torch, dev):
     from vieo_slam_tpu_torch.ops import cuda_build, cuda_fast, cuda_gather
     from vieo_slam_tpu_torch.ops import cuda_matching, cuda_tail, matching, orb
@@ -286,35 +324,56 @@ def check_kernels(torch, dev):
         shapes=[tuple(im.shape) for im in pyramid], survivors=survivors,
         corners=corners)
 
-    # B2: 53x53 tail patches around this image's selected keypoints (1200
-    # in all), the first few of every level moved onto the image border.
-    centers = []
-    for lv, im in enumerate(pyramid):
-        n_l = int(cfg.features_per_level[lv])
-        uv, _, _ = orb.select_keypoints(cuda_fast.fast_nms_blend(im, *th), n_l,
-                                        cfg)
-        h, w = im.shape
-        uv = uv.clone()
-        uv[:4] = torch.tensor([[0, 0], [w - 1, h - 1], [3, h - 1],
-                               [w - 1, 2]], dtype=uv.dtype, device=dev)
-        centers.append(uv.contiguous())
-    r = orb._TAIL_R
-    for im, c in zip(pyramid, centers):
-        if not torch.equal(cuda_gather.gather_patches(im, c, r),
-                           cuda_gather.gather_patches_plain(im, c, r)):
-            fail(f"B2 differs from its plain version at {tuple(im.shape)}")
+    # B2: 53x53 tail patches around each image's selected keypoints (1200
+    # an image), the first four of every level moved onto the image
+    # border; the 8 levels of one image and the 16 of the stereo pair in
+    # one launch each, and the 4-level lists of the known and mono cells.
+    centers = tail_centers(torch, pyramid, cfg, th)
+    pair_centers = centers + tail_centers(torch, pair[len(pyramid):], cfg, th)
+    r, d = orb._TAIL_R, 2 * orb._TAIL_R + 1
+    for levels, cs in ((pyramid, centers), (pair, pair_centers),
+                       (pair4[:4], tail_centers(torch, pair4[:4], cfg4, th)),
+                       (pair4, tail_centers(torch, pair4, cfg4, th))):
+        n0 = cuda_build.LAUNCHES["gather_patches"]
+        got = cuda_gather.gather_patches_multi(levels, cs, r)
+        if cuda_build.LAUNCHES["gather_patches"] != n0 + 1:
+            fail(f"B2 took more than one launch for {len(levels)} levels")
+        want = cuda_gather.gather_patches_multi_plain(levels, cs, r)
+        for im, g, w in zip(levels, got, want):
+            if not torch.equal(g, w):
+                fail(f"B2 differs from its plain version at "
+                     f"{tuple(im.shape)} of {len(levels)} levels")
+    # The library yardstick: one grid_sample a level, grids built before.
+    import torch.nn.functional as F
+
+    grids = [nearest_grid(torch, im, c, r) for im, c in zip(pyramid, centers)]
+
+    def library():
+        return [F.grid_sample(im[None, None], g, mode="nearest",
+                              padding_mode="border", align_corners=True)
+                for im, g in zip(pyramid, grids)]
+
+    library_equal = all(torch.equal(o.reshape(-1, d, d), w) for o, w in zip(
+        library(), cuda_gather.gather_patches_multi_plain(pyramid, centers,
+                                                          r)))
     n_kp = sum(int(c.shape[0]) for c in centers)
     rows["gather_patches"] = dict(
-        device_ms=device_ms(torch, lambda: [cuda_gather.gather_patches(
-            im, c, r) for im, c in zip(pyramid, centers)],
-            "gather_patches_kernel"),
-        ms=time_ms(torch, lambda: [cuda_gather.gather_patches(im, c, r)
-                                   for im, c in zip(pyramid, centers)]),
-        plain_ms=time_ms(torch, lambda: [cuda_gather.gather_patches_plain(
-            im, c, r) for im, c in zip(pyramid, centers)], reps=10),
+        device_ms=device_ms(torch, lambda: cuda_gather.gather_patches_multi(
+            pyramid, centers, r), "gather_patches_kernel"),
+        ms=time_ms(torch, lambda: cuda_gather.gather_patches_multi(
+            pyramid, centers, r)),
+        pair_device_ms=device_ms(
+            torch, lambda: cuda_gather.gather_patches_multi(
+                pair, pair_centers, r), "gather_patches_kernel"),
+        pair_ms=time_ms(torch, lambda: cuda_gather.gather_patches_multi(
+            pair, pair_centers, r)),
+        library_ms=time_ms(torch, library) if library_equal else None,
+        library_equal=library_equal,
+        plain_ms=time_ms(torch, lambda: cuda_gather.gather_patches_multi_plain(
+            pyramid, centers, r), reps=10),
         max_abs_err=0.0,
-        bound=bound(4 * px + 8 * n_kp + 4 * n_kp * (2 * r + 1) ** 2, 0),
-        shapes=[n_kp, 2 * r + 1, 2 * r + 1])
+        bound=bound(4 * px + 8 * n_kp + 4 * n_kp * d * d, 0),
+        shapes=[n_kp, d, d])
 
     # B3: the stereo search of this frame (1200 x 1200, stereo mask).
     fl = orb.extract_orb(img, cfg, device=dev)
@@ -395,7 +454,7 @@ def check_kernels(torch, dev):
         fail(f"B5 differs from its plain version: max angle difference "
              f"{ang_err:.3g} rad (bound 1e-6), {flips} of {n_kp * 256} "
              f"descriptor bits (bound 0)")
-    # The path B5 replaces: 8 launches of B2 and the PyTorch tail.
+    # The path B5 replaces: one launch of B2 and the PyTorch tail.
     replaced_ms = time_ms(torch, lambda: orb.extract_tail_fused_multi(
         pyramid, centers), reps=10)
     rows["tail_fused"] = dict(
@@ -567,9 +626,9 @@ def extract_ms(torch, dev, cfg, images):
 
 
 def check_counts(phase, launches, exact, at_all):
-    """Each kernel of `exact` ran exactly that often (B1 and, where it is
-    on, the tail kernel: once per frame) and each of `at_all` at least
-    once in the run the counts were read from."""
+    """Each kernel of `exact` ran exactly that often (B1, and B2 or the
+    tail kernel B5: once per frame) and each of `at_all` at least once in
+    the run the counts were read from."""
     for k, n in exact.items():
         if launches[k] != n:
             fail(f"{phase}: {k} launched {launches[k]} times, expected {n}")
@@ -673,6 +732,13 @@ def main():
         f"launch take {r['pair_ms']:.4f} ms a call, "
         f"{'not measured' if r['pair_device_ms'] is None else format(r['pair_device_ms'], '.4f')}"
         f" ms in the kernel")
+    r = rows["gather_patches"]
+    log(f"[3 kernels] gather_patches: the 16 levels of a stereo pair in one "
+        f"launch take {r['pair_ms']:.4f} ms a call, "
+        f"{'not measured' if r['pair_device_ms'] is None else format(r['pair_device_ms'], '.4f')}"
+        f" ms in the kernel; library yardstick (8 x F.grid_sample, nearest, "
+        f"border): " + (f"{r['library_ms']:.4f} ms, equal bit for bit"
+                        if r["library_equal"] else "NOT equal, not timed"))
     for k in ("fast_nms_blend", "fused_projection_best2"):
         log(f"[3 kernels] {k}: PyTorch operators in one call of the "
             f"wrapper{' (stereo pair)' if k == 'fast_nms_blend' else ''}: "
@@ -680,8 +746,9 @@ def main():
     r = rows["tail_fused"]
     log(f"[3 kernels] tail_fused: angles within {r['max_abs_err']:.3g} rad "
         f"of the plain version (bound 1e-6), {r['bit_flips']} descriptor "
-        f"bits differ (bound 0); the path it replaces (8 x gather_patches + "
-        f"the PyTorch tail) takes {r['replaced_ms']:.4f} ms on these inputs")
+        f"bits differ (bound 0); the path it replaces (one gather_patches "
+        f"launch + the PyTorch tail) takes {r['replaced_ms']:.4f} ms on these "
+        f"inputs")
     log(f"[3 kernels] all five equal their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -720,8 +787,9 @@ def main():
     if lost:
         fail(f"full-width run lost track in {lost} frames")
     check_counts("full width", launches,
-                 {"fast_nms_blend": n_frames, "tail_fused": 0},
-                 ("gather_patches", "fused_best2", "fused_projection_best2"))
+                 {"fast_nms_blend": n_frames, "gather_patches": n_frames,
+                  "tail_fused": 0},
+                 ("fused_best2", "fused_projection_best2"))
 
     # 6. RGB-D full width, tail kernel on: its own counted run
     t0 = time.perf_counter()
@@ -743,7 +811,8 @@ def main():
     if lost or not res["rmse"] < 0.02 or n_kf < 5 or n_lm <= 200:
         fail("RGB-D full-width run misses its bars")
     check_counts("RGB-D full width", launches_rgbd,
-                 {"fast_nms_blend": n_frames, "tail_fused": n_frames},
+                 {"fast_nms_blend": n_frames, "gather_patches": 0,
+                  "tail_fused": n_frames},
                  ("fused_best2", "fused_projection_best2"))
     ext = [with_tail_kernel(m, lambda: extract_ms(torch, dev, cfg,
                                                   images[warm:warm + 10]))
@@ -774,7 +843,8 @@ def main():
     if first < 0 or lost or not res["rmse"] < 0.02:
         fail("mono known configuration misses its bars")
     check_counts("mono known", launches_mono,
-                 {"fast_nms_blend": n_mono, "tail_fused": n_mono},
+                 {"fast_nms_blend": n_mono, "gather_patches": 0,
+                  "tail_fused": n_mono},
                  ("fused_best2", "fused_projection_best2"))
 
     # 8. where the time goes: the last frames of a shorter full-width run
@@ -811,7 +881,7 @@ def main():
             else launches[k], "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None,
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
             "device_ms": r["device_ms"],
             **{x: r[x] for x in ("pair_ms", "pair_device_ms", "candidates",
                                  "survivors", "corners") if x in r}})

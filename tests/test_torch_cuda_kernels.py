@@ -4,8 +4,11 @@ smaller than one tile, ragged tiles, many levels in one launch and more
 than one launch takes, empty inputs, all-masked rows and columns, many
 exact Hamming ties, more columns than one shared-memory tile, rows that do
 not fill a block, every cell a candidate, inputs the wrapper has to cast;
-for the tail kernel B5 one keypoint, odd counts, one level, an empty
-level, more levels than one launch takes, centers on and outside the
+for the patch gather B2 one entry, the 16 levels of a stereo pair, more
+entries than one launch takes, empty entries, images smaller than the
+window and centers off the image; for the tail kernel B5 one keypoint,
+odd counts, one level, an empty level, more levels than one launch takes,
+the 16 levels of a full-width stereo pair, centers on and outside the
 border and an image as narrow as the window.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode)
@@ -128,6 +131,61 @@ def test_gather_patches(dev, radius):
     assert empty.shape == (0, 2 * radius + 1, 2 * radius + 1)
 
 
+GATHER_MULTI_CASES = {
+    # name: [(H, W, n_centers), ...] per entry
+    "one_entry": [(97, 131, 41)],
+    "stereo_pair": [(round(480 / 1.2 ** lv), round(752 / 1.2 ** lv),
+                     150 - 15 * lv) for _ in range(2) for lv in range(8)],
+    "two_launches": [(40 + i, 70 - i, 1 + i % 5) for i in range(33)],
+    "three_launches_empty": [(30 + i % 7, 50 + i % 11, 0 if i % 4 == 1
+                              else 3) for i in range(70)],
+    "all_empty": [(40, 50, 0), (30, 20, 0)],
+    "smaller_than_window": [(20, 31, 6), (1, 1, 2), (53, 1, 3), (2, 60, 4)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_MULTI_CASES))
+@pytest.mark.parametrize("radius", [15, 26])
+def test_gather_patches_multi(dev, case, radius):
+    rng = np.random.RandomState(len(case) + radius)
+    imgs, uvs = [], []
+    for H, W, n in GATHER_MULTI_CASES[case]:
+        imgs.append(torch.from_numpy(
+            rng.rand(H, W).astype(np.float32) * 255).to(dev))
+        # centers inside, on the corners, and up to 40 pixels outside
+        c = np.stack([rng.randint(-40, W + 40, n),
+                      rng.randint(-40, H + 40, n)], -1)
+        c[:4] = np.array([[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0]])[:n]
+        uvs.append(torch.from_numpy(c.astype(np.int32)).to(dev))
+    counts = [n for *_, n in GATHER_MULTI_CASES[case]]
+    launches = sum(any(counts[a:a + cuda_gather.MAX_LEVELS])
+                   for a in range(0, len(counts), cuda_gather.MAX_LEVELS))
+    n0 = cuda_build.LAUNCHES["gather_patches"]
+    got = cuda_gather.gather_patches_multi(imgs, uvs, radius)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["gather_patches"] == n0 + launches
+    want = cuda_gather.gather_patches_multi_plain(imgs, uvs, radius)
+    assert len(got) == len(want) == len(imgs)
+    d = 2 * radius + 1
+    for g, w, n in zip(got, want, counts):
+        assert g.shape == (n, d, d) and torch.equal(g, w)
+
+
+def test_gather_patches_rejects_bad_arguments(dev):
+    img = torch.zeros((60, 80), device=dev)
+    uv = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match=r"level_uvs\[1\]"):
+        cuda_gather.gather_patches_multi([img, img], [uv, uv.long()], 26)
+    with pytest.raises(ValueError, match=r"level_imgs\[1\]"):
+        cuda_gather.gather_patches_multi([img, img.T], [uv, uv], 26)
+    with pytest.raises(ValueError, match=r"level_uvs\[0\]"):
+        cuda_gather.gather_patches_multi([img], [uv.cpu()], 26)
+    with pytest.raises(ValueError, match=r"level_imgs\[0\]"):
+        cuda_gather.gather_patches_multi([img[:0]], [uv], 26)
+    with pytest.raises(ValueError):
+        cuda_gather.gather_patches_multi([img], [uv, uv], 26)
+
+
 def descriptors(rng, n, n_unique):
     words = rng.randint(0, 2 ** 32, (n_unique, 8), np.uint64).astype(np.uint32)
     return words[rng.randint(0, n_unique, n)].view(np.int32)
@@ -233,6 +291,8 @@ TAIL_CASES = {
     "window_wide_image": [(53, 53, 20), (70, 53, 9)],
     "smaller_than_window": [(20, 31, 6), (1, 1, 2)],
     "three_launches": [(64 + 2 * i, 70 + i, 3) for i in range(70)],
+    "stereo_pair": [(round(480 / 1.2 ** lv), round(752 / 1.2 ** lv),
+                     150 - 15 * lv) for _ in range(2) for lv in range(8)],
 }
 
 
@@ -252,7 +312,7 @@ def test_tail_fused(dev, case):
         c[n // 3: n // 3 + 4] = border[: len(c[n // 3: n // 3 + 4])]
         uvs.append(torch.from_numpy(c.astype(np.int32)).to(dev))
     total = sum(n for *_, n in TAIL_CASES[case])
-    launches = -(-len(imgs) // cuda_tail.MAX_LEVELS) if total else 0
+    launches = -(-len(imgs) // cuda_gather.MAX_LEVELS) if total else 0
     n0 = cuda_build.LAUNCHES["tail_fused"]
     got = cuda_tail.tail_fused_multi(imgs, uvs)
     torch.cuda.synchronize()

@@ -6,7 +6,8 @@ Tolerances and why:
   - FAST + NMS + blend (B1): bit-exact, against both the Pallas kernel in
     interpret mode and the XLA composition -- the same f32 adds in the
     same order, no multiplies.
-  - Patch gather (B2): exact -- every output is a copied input pixel.
+  - Patch gather (B2), one entry or all levels of a stereo pair in one
+    call: exact -- every output is a copied input pixel.
   - Pyramid: rtol 1e-6 (a few f32 ulps).  Both sides resize with f32
     matrix products whose accumulation order differs by library.
   - Keypoint selection on identical score maps: exact (stable sorts give
@@ -29,7 +30,7 @@ import torch
 from vieo_slam_tpu.ops import orb as jorb
 from vieo_slam_tpu.ops import pallas_fast, pallas_gather
 from vieo_slam_tpu_torch import convert
-from vieo_slam_tpu_torch.ops import cuda_fast, cuda_gather
+from vieo_slam_tpu_torch.ops import cuda_build, cuda_fast, cuda_gather
 from vieo_slam_tpu_torch.ops import orb as torb
 
 # One intra-op thread: the suite runs several worker processes at once and
@@ -121,13 +122,32 @@ def test_fast_nms_blend_multi_bit_exact(n_images, n_levels):
     assert cuda_fast.fast_nms_blend_multi([], 20.0, 7.0) == []
 
 
-@pytest.mark.parametrize("n_features,n_levels", [(300, 3), (600, 8)])
-def test_extract_orb_batch_equals_per_image(n_features, n_levels):
-    """The stereo pair through one multi-level FAST call equals the two
-    images extracted one by one, bit for bit."""
+@pytest.mark.parametrize("tail,n_features,n_levels", [
+    pytest.param("fused", 300, 3, id="300-3"),
+    pytest.param("fused", 600, 8, id="600-8"),
+    pytest.param("unfused", 300, 3, id="unfused-300-3"),
+    pytest.param("kernel", 600, 8, id="kernel-600-8"),
+])
+def test_extract_orb_batch_equals_per_image(monkeypatch, tail, n_features,
+                                            n_levels):
+    """The stereo pair through one multi-level FAST call and, on the
+    default fused tail, one patch gather for both images, equals the two
+    images extracted one by one, bit for bit, whichever tail runs."""
+    monkeypatch.setattr(torb, "FUSED_TAIL_MODE",
+                        "off" if tail == "unfused" else "auto")
+    monkeypatch.setattr(torb, "TAIL_KERNEL_MODE",
+                        "on" if tail == "kernel" else "auto")
+    gathers = []
+
+    def counted(level_imgs, level_uvs, radius):
+        gathers.append(len(level_imgs))
+        return cuda_gather.gather_patches_flat(level_imgs, level_uvs, radius)
+
+    monkeypatch.setattr(torb, "gather_patches_flat", counted)
     cfg = torb.OrbConfig(n_features, n_levels)
     pair = np.stack([textured_image(seed=3), textured_image(seed=4)])
     both = torb.extract_orb_batch(pair, cfg, device="cpu")
+    assert gathers == ([2 * n_levels] if tail == "fused" else [])
     for b in range(2):
         one = torb.extract_orb(pair[b], cfg, device="cpu")
         assert int(one.valid.sum()) > 0.5 * n_features
@@ -152,6 +172,68 @@ def test_gather_patches_exact(radius):
             jnp.asarray(img), jnp.asarray(centers), radius, interpret=True)))
     np.testing.assert_array_equal(got, np.asarray(jorb.gather_patches(
         jnp.asarray(img), jnp.asarray(centers), radius, mxu=False)))
+
+
+def multi_gather_entries(case):
+    """(level images, centers) of a multi-entry gather: centers inside,
+    on the image corners and up to 30 pixels off the image; one entry
+    empty."""
+    rng = np.random.RandomState(len(case))
+    if case == "stereo_pair":
+        cfg = torb.OrbConfig(n_levels=8)
+        imgs = [lv for seed in (11, 12) for lv in torb.build_pyramid(
+            torch.from_numpy(corner_image(96, 128, seed)), cfg)]
+    else:   # more entries than one launch takes
+        shapes = [(40, 50), (23, 61), (70, 33)]
+        imgs = [torch.from_numpy(rng.rand(*shapes[i % 3]).astype(np.float32)
+                                 * 255) for i in range(35)]
+    uvs = []
+    for i, im in enumerate(imgs):
+        H, W = im.shape
+        n = 0 if i == 5 else 12
+        c = np.stack([rng.randint(-30, W + 30, n),
+                      rng.randint(-30, H + 30, n)], -1)
+        c[:4] = np.array([[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0]])[:n]
+        c[4:8] = np.stack([rng.randint(0, W, 4), rng.randint(0, H, 4)],
+                          -1)[:max(n - 4, 0)]
+        c[8:10] = np.array([[-7, H // 2], [W + 5, -9]])[:max(n - 8, 0)]
+        uvs.append(torch.from_numpy(c.astype(np.int32)))
+    return imgs, uvs
+
+
+@pytest.mark.parametrize("case", ["stereo_pair", "more_than_32"])
+def test_gather_patches_multi_exact(case):
+    """All entries of a frame in one call: each entry equals the Pallas
+    kernel in interpret mode, and, at its in-image centers, the JAX
+    gather_patches(mxu=False) (off the image the Pallas kernel and the port
+    clamp the center first, the XLA gather does not); the flat buffer is
+    the entries one after another; the CPU counts no launch."""
+    imgs, uvs = multi_gather_entries(case)
+    n0 = cuda_build.LAUNCHES["gather_patches"]
+    got = cuda_gather.gather_patches_multi(imgs, uvs, 26)
+    flat = cuda_gather.gather_patches_flat(imgs, uvs, 26)
+    assert cuda_build.LAUNCHES["gather_patches"] == n0
+    assert len(got) == len(imgs)
+    assert torch.equal(flat, torch.cat(got))
+    for im, uv, g in zip(imgs, uvs, got):
+        H, W = im.shape
+        assert g.shape == (uv.shape[0], 53, 53)
+        if not uv.shape[0]:
+            continue
+        x, c = jnp.asarray(im.numpy()), uv.numpy()
+        np.testing.assert_array_equal(g.numpy(), np.asarray(
+            pallas_gather.gather_patches_kernel(x, jnp.asarray(c), 26,
+                                                interpret=True)))
+        inside = (c[:, 0] >= 0) & (c[:, 0] < W) & (c[:, 1] >= 0) \
+            & (c[:, 1] < H)
+        assert inside.sum() >= 8 and (~inside).any()
+        np.testing.assert_array_equal(g.numpy()[inside], np.asarray(
+            jorb.gather_patches(x, jnp.asarray(c[inside]), 26, mxu=False)))
+    assert torch.equal(cuda_gather.gather_patches(imgs[3], uvs[3], 26),
+                       got[3])
+    assert cuda_gather.gather_patches_multi([], [], 26) == []
+    with pytest.raises(ValueError):
+        cuda_gather.gather_patches_multi(imgs, uvs[:-1], 26)
 
 
 def test_build_pyramid():

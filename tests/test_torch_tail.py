@@ -14,6 +14,9 @@ Tolerances and why:
     atol 0.05 (f32 rounding of ~700 terms of size up to 255 * 15).
   - extract_orb_batch vs stacked extract_orb: exact (the same operations
     on the same per-image, per-level tensors).
+  - Kernel B5's moment order (per-lane register sums, then warp shuffles)
+    and its column blur taken only at the BRIEF taps, emulated in numpy
+    f32, against the plain version's halving tree and full blur: exact.
   - Unfused tail vs the JAX package's unfused branch: angles 2e-4, bits
     <= 0.5 % (blur ties, as tests/test_torch_orb.py states for the fused
     tail).
@@ -138,6 +141,73 @@ def test_moment_tree_and_rotation():
     # comparison of equal taps is false
     ang0, desc0 = cuda_tail.tail_from_big_plain(torch.full((1, 53, 53), 7.0))
     assert float(ang0) == 0.0 and not desc0.any()
+
+
+def lane_strided_tree(p):
+    """The moment sum of kernel B5, emulated in numpy f32: lane l holds the
+    products i = l + 32 k (k < 32), sums them in registers as the halving
+    steps 512 .. 32 pair them (subtree T(k, s) = T(k, 2s) + T(k + s, 2s)),
+    then shuffles down by 16 .. 1."""
+    lanes = p.reshape(*p.shape[:-1], 32, 32)          # [..., k, lane]
+
+    def subtree(k, step):
+        if step == 32:
+            return lanes[..., k, :]
+        return subtree(k, 2 * step) + subtree(k + step, 2 * step)
+
+    s = subtree(0, 1)
+    for half in (16, 8, 4, 2, 1):
+        s = np.concatenate([s[..., :half] + s[..., half:2 * half],
+                            s[..., half:]], -1)
+    return s[..., 0]
+
+
+def test_lane_strided_moment_tree_is_the_halving_tree():
+    """Kernel B5 sums each lane's 32 products in registers and then across
+    the warp; that is the halving tree of `_tree_sum` to the bit, on the
+    real moment products of random windows and on values of mixed
+    magnitude and sign."""
+    rng = np.random.RandomState(1)
+    big = rng.rand(64, 53, 53).astype(np.float32) * 255
+    cen = big[:, 11:42, 11:42].reshape(64, -1)
+    mask = torb._disc_mask(15)
+    coords = np.arange(-15, 16, dtype=np.float32)
+    prods = [np.pad(cen * (mask * w).reshape(-1), ((0, 0), (0, 1024 - 961)))
+             for w in (coords[None, :], coords[:, None])]
+    mixed = (rng.randn(64, 1024) * 10.0 ** rng.randint(-3, 4, (64, 1024))
+             ).astype(np.float32)
+    for p in prods + [mixed]:
+        assert p.dtype == np.float32
+        want = cuda_tail._tree_sum(torch.from_numpy(p)).numpy()
+        np.testing.assert_array_equal(lane_strided_tree(p).view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_column_blur_at_the_taps_is_the_full_blur():
+    """Kernel B5 blurs the columns only at the 512 rotated taps, straight
+    from the row-blurred patch, 7 taps top to bottom: the full 47x47 pass
+    of `_blur7_patch` holds the same bits there, for random windows and
+    rotations."""
+    rng = np.random.RandomState(2)
+    n = 48
+    big = rng.rand(n, 53, 53).astype(np.float32) * 255
+    k = np.asarray(torb._gauss7(), np.float32)
+    rows = big[:, :, 0:47] * k[0]
+    for j in range(1, 7):
+        rows = rows + big[:, :, j:j + 47] * k[j]          # [n, 53, 47]
+    ang = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    ca, sa = np.cos(ang)[:, None, None], np.sin(ang)[:, None, None]
+    pat = torb.BRIEF_PATTERN.astype(np.float32)
+    px, py = pat[..., 0], pat[..., 1]                     # [256, 2]
+    ix = np.clip(np.rint(ca * px - sa * py).astype(np.int64) + 23, 0, 46)
+    iy = np.clip(np.rint(sa * px + ca * py).astype(np.int64) + 23, 0, 46)
+    nn = np.arange(n)[:, None, None]
+    at_taps = rows[nn, iy, ix] * k[0]
+    for j in range(1, 7):
+        at_taps = at_taps + rows[nn, iy + j, ix] * k[j]
+    full = torb._blur7_patch(torch.from_numpy(big)).numpy()
+    np.testing.assert_array_equal(at_taps.view(np.int32),
+                                  full[nn, iy, ix].view(np.int32))
 
 
 def test_extract_tail_fused_single_level(jax_exact_gather):

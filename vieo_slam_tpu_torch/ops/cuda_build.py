@@ -47,13 +47,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fast_nms.cu": {"vs_fast_nms_blend_multi": (_P, _I, _P, _F, _F, _F, _P)},
-    "gather.cu": {"vs_gather_patches": (_P, _P, _P, _I, _I, _I, _I, _P)},
+    "gather.cu": {"vs_gather_patches_multi": (_P, _I, _P, _I, _P)},
     "matching.cu": {
         "vs_fused_best2": (_P, _P, _P, _I, _I, _P, _P),
         "vs_fused_projection_best2": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                                       _I, _I, _P, _P),
     },
-    "tail.cu": {"vs_tail_fused": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)},
+    "tail.cu": {"vs_tail_fused": (_P, _I, _P, _P, _P, _P, _P, _P)},
 }
 
 
@@ -74,7 +74,11 @@ def _nvcc() -> str:
 
 
 def _target(src: str) -> Path:
+    """The library of `src`, named by a hash of it, the shared headers and
+    the flags."""
     h = hashlib.sha1((CSRC / src).read_bytes()
+                     + b"".join(p.read_bytes()
+                                for p in sorted(CSRC.glob("*.cuh")))
                      + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(src).stem}_{h}.so"
 

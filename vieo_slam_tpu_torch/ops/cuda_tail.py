@@ -41,11 +41,10 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .cuda_gather import gather_patches_plain
+from .cuda_gather import gather_patches_plain, launches, level_table
 from .orb import (BRIEF_PATTERN, DESC_WORDS, PATCH_RADIUS, _TAIL_R,
                   _blur7_patch, _disc_mask, _gauss7, brief_from_rotation)
 
-MAX_LEVELS = 32                # (level, image) entries per launch (tail.cu)
 _TREE = 1024                   # moment products, zero-padded
 
 
@@ -59,17 +58,23 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def moments_plain(big: torch.Tensor):
-    """(m10, m01) of [N, 53, 53] windows over the central 31x31 disc."""
-    dev = big.device
-    c0, d = _TAIL_R - PATCH_RADIUS, 2 * PATCH_RADIUS + 1
-    cen = big[:, c0:c0 + d, c0:c0 + d].reshape(-1, d * d)
+def moment_weights() -> np.ndarray:
+    """[2, 961] f32: mask * dx and mask * dy over the 31x31 centre, row
+    major -- the weights of m10 and m01."""
     mask = _disc_mask(PATCH_RADIUS)
     coords = np.arange(-PATCH_RADIUS, PATCH_RADIUS + 1, dtype=np.float32)
+    return np.stack([(mask * coords[None, :]).reshape(-1),
+                     (mask * coords[:, None]).reshape(-1)])
+
+
+def moments_plain(big: torch.Tensor):
+    """(m10, m01) of [N, 53, 53] windows over the central 31x31 disc."""
+    c0, d = _TAIL_R - PATCH_RADIUS, 2 * PATCH_RADIUS + 1
+    cen = big[:, c0:c0 + d, c0:c0 + d].reshape(-1, d * d)
     pad = (0, _TREE - d * d)
     out = []
-    for w in (mask * coords[None, :], mask * coords[:, None]):
-        prod = cen * torch.from_numpy(w.reshape(-1)).to(dev)
+    for w in moment_weights():
+        prod = cen * torch.from_numpy(w).to(big.device)
         out.append(_tree_sum(torch.nn.functional.pad(prod, pad)))
     return out[0], out[1]
 
@@ -101,17 +106,21 @@ def tail_fused_multi_plain(level_imgs: list, level_uvs: list):
     return out
 
 
-_pattern_cache: dict[torch.device, torch.Tensor] = {}
+_TAPS = (ctypes.c_float * 7)(*_gauss7())      # the Gaussian taps, f32
+_tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _pattern_on(dev: torch.device) -> torch.Tensor:
-    """[256, 4] f32 (x1, y1, x2, y2) of the BRIEF pairs on `dev`."""
-    pat = _pattern_cache.get(dev)
-    if pat is None:
-        pat = torch.from_numpy(np.ascontiguousarray(
-            BRIEF_PATTERN.reshape(-1, 4).astype(np.float32))).to(dev)
-        _pattern_cache[dev] = pat
-    return pat
+def _tables_on(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's constant tables on `dev`, made once: the BRIEF pairs,
+    [256, 4] f32 (x1, y1, x2, y2), and the moment weights, [2, 1024] f32
+    (`moment_weights`, zero-padded)."""
+    if dev not in _tables:
+        w = np.zeros((2, _TREE), np.float32)
+        w[:, :961] = moment_weights()
+        _tables[dev] = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                             for x in (BRIEF_PATTERN.reshape(-1, 4)
+                                       .astype(np.float32), w))
+    return _tables[dev]
 
 
 def tail_fused_multi(level_imgs: list, level_uvs: list):
@@ -126,38 +135,20 @@ def tail_fused_multi(level_imgs: list, level_uvs: list):
         return []
     if not level_imgs[0].is_cuda:
         return tail_fused_multi_plain(level_imgs, level_uvs)
+    table, counts = level_table(level_imgs, level_uvs)
     dev = level_imgs[0].device
-    for im, uv in zip(level_imgs, level_uvs):
-        cuda_build.require(im, "level image", torch.float32, (None, None), dev)
-        cuda_build.require(uv, "level centers", torch.int32, (None, 2), dev)
-        if im.numel() == 0:
-            raise ValueError("level image is empty")
-    counts = [int(uv.shape[0]) for uv in level_uvs]
-    total = sum(counts)
-    angle = torch.empty(total, dtype=torch.float32, device=dev)
-    desc = torch.empty((total, DESC_WORDS), dtype=torch.int32, device=dev)
-    lib = cuda_build.library("tail.cu") if total else None
-    taps = (ctypes.c_float * 7)(*_gauss7())
-    o = 0
-    for a in range(0, len(level_imgs), MAX_LEVELS):
-        sl = slice(a, a + MAX_LEVELS)
-        n = sum(counts[sl])
-        if n == 0:
-            continue
-        L = len(counts[sl])
-        rc = lib.vs_tail_fused(
-            (ctypes.c_void_p * L)(*[im.data_ptr() for im in level_imgs[sl]]),
-            (ctypes.c_void_p * L)(*[uv.data_ptr() for uv in level_uvs[sl]]),
-            (ctypes.c_int * L)(*[im.shape[0] for im in level_imgs[sl]]),
-            (ctypes.c_int * L)(*[im.shape[1] for im in level_imgs[sl]]),
-            (ctypes.c_int * L)(*counts[sl]), L, taps,
-            _pattern_on(dev).data_ptr(), angle[o:].data_ptr(),
-            desc[o:].data_ptr(), cuda_build.stream_of(angle))
-        cuda_build.check(rc, "tail_fused")
-        cuda_build.LAUNCHES["tail_fused"] += 1
-        o += n
-    out, o = [], 0
-    for n in counts:
-        out.append((angle[o:o + n], desc[o:o + n]))
-        o += n
-    return out
+    angle = torch.empty(sum(counts), dtype=torch.float32, device=dev)
+    desc = torch.empty((len(angle), DESC_WORDS), dtype=torch.int32,
+                       device=dev)
+    if len(angle):
+        lib = cuda_build.library("tail.cu")
+        pattern, weights = (x.data_ptr() for x in _tables_on(dev))
+        stream = cuda_build.stream_of(angle)
+        for rows, n_rows, k0 in launches(table, counts):
+            rc = lib.vs_tail_fused(rows, n_rows, _TAPS, pattern, weights,
+                                   angle.data_ptr() + 4 * k0,
+                                   desc.data_ptr() + 4 * DESC_WORDS * k0,
+                                   stream)
+            cuda_build.check(rc, "tail_fused")
+            cuda_build.LAUNCHES["tail_fused"] += 1
+    return list(zip(angle.split(counts), desc.split(counts)))

@@ -7,9 +7,9 @@ default tail is the fused one (one 53x53 raw patch per keypoint, IC angle
 from its centre, in-patch 7-tap blur, rotated-BRIEF taps); the unfused
 tail (whole-image blur, two gathers per keypoint) sits behind
 `FUSED_TAIL_MODE`.  On the GPU the image-wide FAST/NMS/blend step runs in
-kernel B1 (ops/cuda_fast.py), the patch gathers in kernel B2
-(ops/cuda_gather.py), and with `TAIL_KERNEL_MODE = "on"` the whole tail of
-an image in one launch of kernel B5 (ops/cuda_tail.py).
+kernel B1 (ops/cuda_fast.py), the patch gathers of a frame in one launch
+of kernel B2 (ops/cuda_gather.py), and with `TAIL_KERNEL_MODE = "on"` the
+whole tail of a frame in one launch of kernel B5 (ops/cuda_tail.py).
 
 Descriptors are [N, 8] int32 tensors carrying the bits of the JAX
 package's uint32 words.
@@ -29,7 +29,7 @@ import torch
 from ..utils.device import resolve_device
 from .cuda_fast import (FAST_CIRCLE, fast_nms_blend,  # noqa: F401
                         fast_nms_blend_multi, fast_score_maps, nms3)
-from .cuda_gather import gather_patches
+from .cuda_gather import gather_patches, gather_patches_flat
 
 PATCH_RADIUS = 15          # IC_Angle circular patch
 DESC_BITS = 256
@@ -288,7 +288,7 @@ def _env_mode(name: str) -> str:
 # and "on" take the fused tail (what the JAX package runs on its
 # accelerator), "off" the unfused one.  TAIL_KERNEL_MODE: "on" routes the
 # fused tail through kernel B5 (one launch for all levels); "auto" and
-# "off" keep per-level B2 gathers plus the PyTorch tail, the JAX default.
+# "off" keep the B2 gather plus the PyTorch tail, the JAX default.
 FUSED_TAIL_MODE = _env_mode("ORB_FUSED_TAIL")
 TAIL_KERNEL_MODE = _env_mode("ORB_TAIL_KERNEL")
 
@@ -317,30 +317,37 @@ def extract_tail_fused(im: torch.Tensor, uv: torch.Tensor):
     return ang, desc
 
 
-def extract_tail_fused_multi(level_imgs: list, level_uvs: list):
-    """Fused tail of all levels.  With the tail kernel on: one launch of
-    kernel B5.  Otherwise per-level 53x53 patch gathers (kernel B2, one
-    launch per level), then one concatenated blur + IC-angle + BRIEF pass.
-    Returns [(angle, desc), ...] per level."""
+def extract_tail_fused_multi(level_imgs: list, level_uvs: list,
+                             per_image: list | None = None):
+    """Fused tail of all levels of one image, or of several images whose
+    levels come image after image (`per_image`: the number of levels of
+    each; default one image).  With the tail kernel on: one launch of
+    kernel B5.  Otherwise one launch of kernel B2 gathers the 53x53 patches
+    of every level, image after image into one buffer, and one blur +
+    IC-angle + BRIEF pass runs per image on its slice of it (the PyTorch
+    tail's vectorized reductions are not row-independent to the last ulp,
+    so an image's result must not depend on the other image).  Returns
+    [(angle, desc), ...] per level."""
     if _use_tail_kernel():
         from . import cuda_tail
         return cuda_tail.tail_fused_multi(level_imgs, level_uvs)
-    bigs = [gather_patches(im, uv, _TAIL_R)
-            for im, uv in zip(level_imgs, level_uvs)]
-    ang, desc = _tail_from_big(torch.cat(bigs))
-    out = []
-    o = 0
-    for b in bigs:
-        n = b.shape[0]
-        out.append((ang[o:o + n], desc[o:o + n]))
-        o += n
+    counts = [int(uv.shape[0]) for uv in level_uvs]
+    big = gather_patches_flat(level_imgs, level_uvs, _TAIL_R)
+    out, o, lv = [], 0, 0
+    for n_lv in per_image or [len(level_imgs)]:
+        sizes = counts[lv:lv + n_lv]
+        n = sum(sizes)
+        ang, desc = _tail_from_big(big[o:o + n])
+        out += zip(ang.split(sizes), desc.split(sizes))
+        o, lv = o + n, lv + n_lv
     return out
 
 
-def _tails(level_imgs: list, level_uvs: list):
-    """[(angle, desc), ...] per level through the configured tail."""
+def _tails(level_imgs: list, level_uvs: list, per_image: list):
+    """[(angle, desc), ...] per level through the configured tail; the
+    levels come image after image, `per_image` of each."""
     if _use_fused_tail():
-        return extract_tail_fused_multi(level_imgs, level_uvs)
+        return extract_tail_fused_multi(level_imgs, level_uvs, per_image)
     tails = []
     for im, uv in zip(level_imgs, level_uvs):
         ang = ic_angle(gather_patches(im, uv, PATCH_RADIUS))
@@ -387,8 +394,9 @@ def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
     Every field of the result has a leading [B] axis and equals the stacked
     per-image `extract_orb` results bit for bit: pyramid and selection run
     per (level, image), as in the JAX package; FAST + NMS + blend of every
-    level of every image is one launch of kernel B1; with the tail kernel
-    on, the keypoint tail of all images is one launch too."""
+    level of every image is one launch of kernel B1; the patch gather of
+    the fused tail is one launch of kernel B2 or, with the tail kernel on,
+    the whole keypoint tail one launch of kernel B5."""
     dev = resolve_device(device)
     imgs = torch.as_tensor(imgs, dtype=torch.float32).to(dev)
     if imgs.ndim != 3:
@@ -396,32 +404,19 @@ def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
     B = imgs.shape[0]
     pyramids = [build_pyramid(imgs[b].contiguous(), cfg) for b in range(B)]
     per_level = cfg.features_per_level
-    meta = [(lv, b, pyramids[b][lv])       # (lv, b, level image)
-            for lv in range(cfg.n_levels) if per_level[lv] > 0
-            for b in range(B)]
+    levels = [lv for lv in range(cfg.n_levels) if per_level[lv] > 0]
+    L = len(levels)
+    level_imgs = [pyramids[b][lv] for b in range(B) for lv in levels]
     # Strict/permissive blended, NMS'd FAST score maps (selection input):
     # iniThFAST winners boosted above every minThFAST score.
-    scores = fast_nms_blend_multi([im for _, _, im in meta],
-                                  cfg.fast_threshold, cfg.fast_min_threshold)
+    scores = fast_nms_blend_multi(level_imgs, cfg.fast_threshold,
+                                  cfg.fast_min_threshold)
     sels = [_select_level(score, int(per_level[lv]), cfg)
-            for (lv, _, _), score in zip(meta, scores)]
-    # Kernel B5 takes all levels of all images in one launch (each block
-    # is on its own).  The PyTorch tails run image by image: their
-    # vectorized reductions are not row-independent to the last ulp.
-    every = list(range(len(meta)))
-    groups = [every] if _use_fused_tail() and _use_tail_kernel() else \
-        [[i for i in every if meta[i][1] == b] for b in range(B)]
-    tails = [None] * len(meta)
-    for rows in groups:
-        for i, tail in zip(rows, _tails([meta[i][2] for i in rows],
-                                        [sels[i][0] for i in rows])):
-            tails[i] = tail
-    per_image = []
-    for b in range(B):
-        rows = [i for i in every if meta[i][1] == b]
-        per_image.append(_assemble(
-            [meta[i][0] for i in rows], [sels[i] for i in rows],
-            [tails[i] for i in rows], cfg, dev))
+            for lv, score in zip(levels * B, scores)]
+    tails = _tails(level_imgs, [uv for uv, _, _ in sels], [L] * B)
+    per_image = [_assemble(levels, sels[b * L:(b + 1) * L],
+                           tails[b * L:(b + 1) * L], cfg, dev)
+                 for b in range(B)]
     return OrbFeatures(*(torch.stack(f) for f in zip(*per_image)))
 
 
