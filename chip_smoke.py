@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      B2 bit-exact, for the 8 levels of one image and the 16 of a stereo
      pair in one launch each, and at the 4-level lists of the known and
      mono cells; B3 and B4 identical integers, B5 identical descriptor
-     bits and angles within 1e-6 rad), a call timed with CUDA events, the
+     bits and angles within 1e-6 rad; B3 and B4 also at the shapes the
+     place-recognition path gives them and on all-invalid inputs), a call
+     timed with CUDA events, the
      kernels alone read from torch.profiler, the PyTorch operators that
      the wrappers of B1 and B4 call around their launch, and B2's library
      yardstick (F.grid_sample, nearest, border padding), checked equal.
@@ -42,6 +44,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
   8. profile: the last 6 frames of a 14-frame full-width stereo run under
      torch.profiler -- device busy share, device ops and host waits per
      frame, the device time of each stage and the top device entries.
+  9. stereo blackout at full width (place recognition): the
+     stereo_blackout row of examples/evaluate_ntimes.py at 752x480, 1200
+     features, 8 levels -- 2200 landmarks (2 % of them moving), an outward
+     circle at 0.35 rad/s, 60 frames, photometric noise and drift (the
+     noise of the row's first run, seed 11), frames 36-47 black -- with a
+     LoopCloser attached.  Counters zeroed before and
+     read after, and read around every relocalization call: it must
+     relocalize at least once, be OK again by frame 53 and never LOST after
+     the first recovery, with the keyframe ATE after the recovery under
+     0.02 m, and B3 and B4 launched inside the relocalization calls.  Then
+     the host waits of one relocalization, from torch.profiler.
+ 10. stereo loop at full width: the stereo_loop row (4000 landmarks, 2 %
+     moving, a 1.5 m outward circle at 180 frames a lap, 360 frames,
+     min_kf_gap 30, seed 11), same sizes.  Bars: 0 LOST, a loop closed, fused
+     points > 0, keyframe ATE after the final global BA < 0.02 m, B3 and
+     B4 launched inside loop_closer.process_keyframe.  Prints the keyframe
+     ATE before and after the first closure and without and with the final
+     GBA, the ms of relocalization, loop closing, GBA and final GBA, and
+     the host waits of one closure.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -74,6 +95,19 @@ WORLD = dict(n_landmarks=1800, seed=3, extent=(6.0, 4.5, 3.0))
 MONO_WORLD = dict(n_landmarks=2200, seed=4, extent=(6.0, 4.5, 3.0))
 MONO_OMEGA = 0.35
 NOISE_SIGMA = 2.0
+# The place-recognition rows of examples/evaluate_ntimes.py: moving
+# landmarks, the blackout world and its 12 black frames, the loop world
+# and its 180-frame lap.
+DYNAMIC_FRAC = 0.02
+BLACKOUT_WORLD = dict(n_landmarks=2200, seed=4, extent=(6.0, 4.5, 3.0),
+                      dynamic_frac=DYNAMIC_FRAC)
+LOOP_WORLD = dict(n_landmarks=4000, seed=4, extent=(8.0, 6.0, 3.0),
+                  dynamic_frac=DYNAMIC_FRAC)
+LOOP_RADIUS = 1.5
+LOOP_FRAMES_PER_LAP = 180
+# The noise seed of the first run of each row in evaluate_ntimes.py
+# (seed0 + 7 * run), so that these runs are comparable with its rows.
+PLACE_SEED = 11
 
 
 def log(msg):
@@ -471,8 +505,68 @@ def check_kernels(torch, dev):
     return rows
 
 
+def check_place_cases(torch, dev):
+    """B3 and B4 against their plain versions at the shapes of the
+    place-recognition path, on the full-width frame of phase 3: the
+    relocalization match (the left image's 1200 keypoints against the
+    right's, octave gate |level difference| <= 1), the harvest (2048
+    projected points at radius 10, level tolerance 8, predicted level 0),
+    and both on all-invalid inputs (a blacked-out frame).  Returns
+    {case: {ms, matched}}."""
+    from vieo_slam_tpu_torch.ops import cuda_matching, orb
+
+    cam, _, world, _, Rcw, tcw, _ = scene(1, 752)
+    cfg = orb.OrbConfig(n_features=1200, n_levels=8)
+    left, right = world.render_stereo(cam, Rcw[0], tcw[0], BASELINE)
+    fl = orb.extract_orb(torch.from_numpy(left).to(dev), cfg, device=dev)
+    fr = orb.extract_orb(torch.from_numpy(right).to(dev), cfg, device=dev)
+    N = fl.desc.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    scales = torch.from_numpy(cfg.level_scales.astype(np.float32)).to(dev)
+    reloc_mask = (fl.valid[:, None] & fr.valid[None, :]
+                  & ((fl.level[:, None] - fr.level[None, :]).abs() <= 1))
+    HC = 2048
+    h_src = torch.randint(0, N, (HC,), generator=g).to(dev)
+    h_uv = fl.uv[h_src] + 3.0 * torch.randn(HC, 2, generator=g).to(dev)
+    h_uv[1200:] = torch.rand(HC - 1200, 2, generator=g).to(dev) \
+        * torch.tensor([752.0, 480.0], device=dev)
+    h_desc = (fl.desc[h_src] ^ (torch.randint(0, 2, (HC, 8), generator=g,
+                                              dtype=torch.int32).to(dev)
+                                << 9)).contiguous()
+    h_level = torch.zeros(HC, dtype=torch.int32, device=dev)
+    h_valid = torch.arange(HC, device=dev) < 1800
+    h_radius = 10.0 * scales[h_level.long()]
+    harvest = (h_desc, fl.desc, h_uv, h_radius, h_level, h_valid, fl.uv,
+               fl.level, fl.valid, 8)
+    b3 = (cuda_matching.fused_best2, cuda_matching.fused_best2_plain)
+    b4 = (cuda_matching.fused_projection_best2,
+          cuda_matching.fused_projection_best2_plain)
+    cases = {
+        "B3 reloc 1200x1200 octave mask": (
+            *b3, (fl.desc, fr.desc, reloc_mask.contiguous())),
+        "B3 all-invalid": (
+            *b3, (fl.desc, fr.desc, torch.zeros_like(reloc_mask))),
+        "B4 harvest 2048x1200": (*b4, harvest),
+        "B4 all-invalid rows": (
+            *b4, harvest[:5] + (torch.zeros_like(h_valid),) + harvest[6:]),
+        "B4 all-invalid keypoints": (
+            *b4, harvest[:8] + (torch.zeros_like(fl.valid), 8)),
+    }
+    out = {}
+    for case, (fn, plain, a) in cases.items():
+        got, want = fn(*a), plain(*a)
+        err = max(int((x.long() - y.long()).abs().max()) for x, y in
+                  zip(got, want))
+        if err:
+            fail(f"{case}: differs from its plain version (max |diff| "
+                 f"{err})")
+        out[case] = dict(ms=time_ms(torch, lambda: fn(*a)),
+                         matched=int((got[1] < cuda_matching.INF).sum()))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 to 8: end to end
+# Phases 4 to 10: end to end
 # ---------------------------------------------------------------------------
 
 
@@ -637,6 +731,183 @@ def check_counts(phase, launches, exact, at_all):
         fail(f"{phase}: kernels never launched: {idle}")
 
 
+def host_waits(torch, fn):
+    """(fn(), {host wait call: count}) of one fn() under torch.profiler:
+    stream and device synchronizations and the copies between host and
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key: e.count for e in prof.key_averages()
+                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaMemcpyAsync", "cudaEventSynchronize")}
+
+
+def run_place_recognition(torch, dev, row, n_frames=None, width=752,
+                          n_features=1200, n_levels=8, seed=PLACE_SEED):
+    """The stereo_blackout or stereo_loop row of examples/evaluate_ntimes.py
+    through build_stereo_frame + System.track_frame with a LoopCloser
+    attached, images rendered frame by frame.  Returns a dict of the
+    system, the states, the ATEs, the launches counted inside the
+    relocalization calls and inside loop_closer.process_keyframe, and the
+    inputs of the last recovery frame."""
+    from vieo_slam_tpu_torch.backend.loop_closing import (
+        LoopCloser, LoopClosingConfig)
+    from vieo_slam_tpu_torch.cameras import models as cm
+    from vieo_slam_tpu_torch.frontend import frame as fr
+    from vieo_slam_tpu_torch.frontend import relocalization
+    from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
+    from vieo_slam_tpu_torch.io.evaluate import ate
+    from vieo_slam_tpu_torch.ops import cuda_build, orb
+    from vieo_slam_tpu_torch.sim import world as sim
+    from vieo_slam_tpu_torch.system import System, SystemConfig
+    from vieo_slam_tpu_torch.utils.metrics import metrics
+
+    loop = row == "stereo_loop"
+    n = n_frames or (2 * LOOP_FRAMES_PER_LAP if loop else 60)
+    s = width / 640.0
+    cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0, width,
+                          480)
+    bf = cam.fx * BASELINE
+    ts = np.arange(n) * 0.1
+    if loop:
+        world = sim.SyntheticWorld(sim.WorldConfig(**LOOP_WORLD))
+        Rwc, twc = sim.circle_trajectory(
+            ts, radius=LOOP_RADIUS,
+            omega=2 * np.pi / (LOOP_FRAMES_PER_LAP * 0.1), look_outward=True)
+        bo = (-1, -1)
+    else:
+        world = sim.SyntheticWorld(sim.WorldConfig(**BLACKOUT_WORLD))
+        Rwc, twc = sim.circle_trajectory(ts, radius=1.0, omega=MONO_OMEGA,
+                                         look_outward=True)
+        bo = (3 * n // 5, 3 * n // 5 + 12)
+    Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
+    cfg = orb.OrbConfig(n_features=n_features, n_levels=n_levels)
+    rng = np.random.RandomState(seed)       # the photometric noise
+
+    metrics.reset()
+    system = System(cam, bf, SystemConfig(tracker=TrackerConfig(
+        use_predicted_scale=True)), device=dev)
+    system.loop_closer = LoopCloser(
+        cam, bf, system.map,
+        LoopClosingConfig(min_kf_gap=30 if loop else 8, fix_scale=True),
+        device=dev)
+
+    def kf_ate(t_min=-1.0):
+        m = system.map
+        kfs = m.keyframe_ids()
+        kfs = kfs[m.kf_timestamp[kfs] > t_min]
+        if len(kfs) < 3:
+            return float("nan")
+        p = np.stack([-(m.kf_Rcw[k].T @ m.kf_tcw[k]) for k in kfs])
+        return ate(m.kf_timestamp[kfs], p, ts, twc)["rmse"]
+
+    inside = {"reloc": {}, "loop": {}}
+
+    def counted(kind, fn):
+        def wrapped(*a, **kw):
+            before = dict(cuda_build.LAUNCHES)
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc = inside[kind]
+                for k, v in cuda_build.LAUNCHES.items():
+                    acc[k] = acc.get(k, 0) + v - before[k]
+        return wrapped
+
+    reloc_orig = relocalization.try_relocalize
+    relocalization.try_relocalize = counted("reloc", reloc_orig)
+    lc = system.loop_closer
+    lc.process_keyframe = counted("loop", lc.process_keyframe)
+    closures = []
+    correct_orig = lc._correct_loop
+
+    def correct_hooked(k, c, S_ck):
+        pre = kf_ate()
+        correct_orig(k, c, S_ck)
+        closures.append((k, c, pre, kf_ate()))
+
+    lc._correct_loop = correct_hooked
+    # The state before the first closure, to replay it under the profiler.
+    replay = {}
+    try_close_orig = lc._try_close
+
+    def try_close_hooked(k, c):
+        before = None if replay else (
+            system.map.copy(), lc.db.bows.copy(), lc.db.present.copy(),
+            dict(lc.kf_bow), lc.last_loop_kf, list(lc.loop_edges))
+        closed = try_close_orig(k, c)
+        if closed and before is not None:
+            replay.update(k=k, c=c, state=before)
+        return closed
+
+    lc._try_close = try_close_hooked
+    states, recovered_at, last_frame = [], None, None
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            t = float(ts[i])
+            g, b = gain_bias(t)
+            left, right = world.render_stereo(
+                cam, Rcw[i], tcw[i], BASELINE, t=t, noise_sigma=NOISE_SIGMA,
+                gain=g, bias=b, rng=rng)
+            if bo[0] <= i < bo[1]:
+                left, right = np.zeros_like(left), np.zeros_like(right)
+            frame = fr.build_stereo_frame(
+                torch.from_numpy(left).to(dev),
+                torch.from_numpy(right).to(dev), cfg, bf=bf, min_depth=0.3,
+                max_depth=15.0, timestamp=t, device=dev)
+            n_reloc = metrics.counters.get("reloc_success", 0)
+            states.append(system.track_frame(frame).name)
+            if metrics.counters.get("reloc_success", 0) > n_reloc:
+                if recovered_at is None:
+                    recovered_at = i
+                last_frame = frame
+    finally:
+        relocalization.try_relocalize = reloc_orig
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pre_gba = kf_ate()
+    system.final_global_ba()
+    out = dict(system=system, states=states, n=n, ts=ts, bo=bo,
+               recovered_at=recovered_at, last_frame=last_frame,
+               inside=inside, closures=closures, replay=replay,
+               run_s=run_s,
+               ate_no_gba=pre_gba, ate_gba=kf_ate(),
+               ate_post_recovery=kf_ate(float(ts[bo[1]])) if bo[1] > 0
+               else None,
+               report=metrics.report())
+    return out
+
+
+def replay_closure(lc, replay):
+    """_try_close of the first closure again, by a fresh LoopCloser over a
+    copy of the map and of the closer's state from just before it."""
+    from vieo_slam_tpu_torch.backend.loop_closing import LoopCloser
+    from vieo_slam_tpu_torch.loop.keyframe_db import KeyFrameDatabase
+
+    m, bows, present, kf_bow, last_loop_kf, loop_edges = replay["state"]
+    lc2 = LoopCloser(lc.cam, lc.bf, m, lc.cfg, vocabulary=lc.voc,
+                     device=lc.device)
+    lc2.db = KeyFrameDatabase(bows.shape[1], bows.shape[0])
+    lc2.db.bows, lc2.db.present = bows.copy(), present.copy()
+    lc2.kf_bow = dict(kf_bow)
+    lc2.last_loop_kf = last_loop_kf
+    lc2.loop_edges = list(loop_edges)
+    return lc2._try_close(replay["k"], replay["c"])
+
+
+def stage_ms(report, name):
+    """(count, mean ms, total ms) of a stage timer, zeros if it never ran."""
+    st = report["stages_ms"].get(name)
+    return (st["count"], st["mean"], st["total"]) if st else (0, 0.0, 0.0)
+
+
 def summarize_profile(prof, wall_s, n_frames):
     """Device busy share, kernel launches and host waits per frame, the
     device time under each stage label, and the top device entries."""
@@ -699,6 +970,7 @@ def main():
         print(f"chip_smoke: {ROOT} holds no vieo_slam_tpu_torch package",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from vieo_slam_tpu_torch.ops import cuda_build
 
@@ -720,6 +992,7 @@ def main():
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     rows = check_kernels(torch, dev)
+    place = check_place_cases(torch, dev)
     for k, r in rows.items():
         on_card = "not measured" if r["device_ms"] is None \
             else f"{r['device_ms']:.4f} ms"
@@ -749,6 +1022,9 @@ def main():
         f"bits differ (bound 0); the path it replaces (one gather_patches "
         f"launch + the PyTorch tail) takes {r['replaced_ms']:.4f} ms on these "
         f"inputs")
+    for case, r in place.items():
+        log(f"[3 kernels] {case}: equal to its plain version, "
+            f"{r['ms']:.4f} ms a call, {r['matched']} rows with a candidate")
     log(f"[3 kernels] all five equal their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -855,6 +1131,83 @@ def main():
                                       profile_from=prof_from)
     summarize_profile(prof, prof_s, n_prof - prof_from)
 
+    # 9. stereo blackout at full width: relocalization
+    from vieo_slam_tpu_torch.frontend.relocalization import try_relocalize
+
+    cuda_build.reset_launches()
+    bo = run_place_recognition(torch, dev, "stereo_blackout")
+    launches_bo = dict(cuda_build.LAUNCHES)
+    system, states = bo["system"], bo["states"]
+    rec = bo["recovered_at"]
+    n_reloc = bo["report"]["counters"].get("reloc_success", 0)
+    lost_after = sum(x == "LOST" for x in states[rec + 1:]) if rec is not None \
+        else None
+    first_ok = next((i for i in range(bo["bo"][1], bo["n"])
+                     if states[i] == "OK"), None)
+    n_rl, rl_mean, _ = stage_ms(bo["report"], "relocalize")
+    log(f"[9 stereo blackout] {bo['n']} frames 752x480, 1200 features, 8 "
+        f"levels, frames {bo['bo'][0]}-{bo['bo'][1] - 1} black: LOST "
+        f"{states.count('LOST')} frames, {n_reloc} relocalizations of "
+        f"{bo['report']['counters'].get('reloc_attempts', 0)} attempts, first "
+        f"at frame {rec}, OK again from frame {first_ok}, LOST after the first "
+        f"recovery {lost_after}; keyframe ATE after the recovery "
+        f"{bo['ate_post_recovery']:.5f} m, whole run without / with the final "
+        f"GBA {bo['ate_no_gba']:.5f} / {bo['ate_gba']:.5f} m; "
+        f"{system.map.n_keyframes()} keyframes, {system.map.n_landmarks()} "
+        f"landmarks; launches {launches_bo}, inside the relocalization calls "
+        f"{bo['inside']['reloc']} ({bo['run_s']:.1f} s)")
+    log(f"[9 stereo blackout] ms: relocalize {rl_mean:.2f} mean over {n_rl} "
+        f"calls, final GBA {stage_ms(bo['report'], 'final_gba')[1]:.2f}, stages "
+        f"{ {k: v['mean'] for k, v in bo['report']['stages_ms'].items()} }")
+    if not n_reloc or first_ok is None or first_ok > 53 or lost_after \
+            or not bo["ate_post_recovery"] < 0.02:
+        fail("stereo blackout misses its bars")
+    if not (bo["inside"]["reloc"].get("fused_best2", 0) > 0
+            and bo["inside"]["reloc"].get("fused_projection_best2", 0) > 0):
+        fail(f"relocalization did not launch B3 and B4: "
+             f"{bo['inside']['reloc']}")
+    ok, waits = host_waits(torch, lambda: try_relocalize(
+        system, system.loop_closer, bo["last_frame"]))
+    log(f"[9 stereo blackout] host waits of one relocalization (the recovery "
+        f"frame again, {'recovered' if ok else 'not recovered'}): {waits}")
+
+    # 10. stereo loop at full width: loop closing and global BA
+    cuda_build.reset_launches()
+    lp = run_place_recognition(torch, dev, "stereo_loop")
+    launches_loop = dict(cuda_build.LAUNCHES)
+    system, states = lp["system"], lp["states"]
+    lc = system.loop_closer
+    rep = lp["report"]
+    first = lp["closures"][0] if lp["closures"] else None
+    log(f"[10 stereo loop] {lp['n']} frames 752x480, 1200 features, 8 levels: "
+        f"LOST {states.count('LOST')}, {lc.n_loops_closed} loops closed "
+        f"(first: keyframe {first[0] if first else None} to "
+        f"{first[1] if first else None}), {lc.total_fuse_count} points fused; "
+        f"keyframe ATE before / after the first closure "
+        f"{first[2] if first else float('nan'):.5f} / "
+        f"{first[3] if first else float('nan'):.5f} m, without / with the "
+        f"final GBA {lp['ate_no_gba']:.5f} / {lp['ate_gba']:.5f} m; "
+        f"{system.map.n_keyframes()} keyframes, {system.map.n_landmarks()} "
+        f"landmarks; launches {launches_loop}, inside process_keyframe "
+        f"{lp['inside']['loop']} ({lp['run_s']:.1f} s)")
+    log("[10 stereo loop] ms (count, mean, total): " + ", ".join(
+        f"{k} {stage_ms(rep, k)}" for k in (
+            "loop_closing", "gba", "final_gba", "local_mapping", "track",
+            "frame")))
+    if states.count("LOST") or not lc.n_loops_closed \
+            or not lc.total_fuse_count > 0 or not lp["ate_gba"] < 0.02:
+        fail("stereo loop misses its bars")
+    if not (lp["inside"]["loop"].get("fused_best2", 0) > 0
+            and lp["inside"]["loop"].get("fused_projection_best2", 0) > 0):
+        fail(f"loop closing did not launch B3 and B4: {lp['inside']['loop']}")
+    closed, waits = host_waits(torch, lambda: replay_closure(lc, lp["replay"]))
+    log(f"[10 stereo loop] host waits of one closure (keyframe "
+        f"{lp['replay']['k']} to {lp['replay']['c']} replayed on a copy of "
+        f"the map before it, {'closed' if closed else 'not closed'}): "
+        f"{waits}")
+    if not closed:
+        fail("the replayed closure did not close")
+
     meta = {
         "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99"),
         "gather_patches": ("gather.cu", "vieo_slam_tpu/ops/pallas_gather.py:73"),
@@ -866,13 +1219,16 @@ def main():
     }
     # `launches`: B1-B4 as counted over the stereo full-width run, B5 over
     # the RGB-D full-width run (the stereo run keeps the default tail);
-    # `launches_by_path` has every counted run.
+    # `launches_by_path` has every counted run.  Phases 9 and 10 are the
+    # place-recognition path's counted runs.
     kernels = []
     for k, (src, replaces) in meta.items():
         r = rows[k]
         by_path = {"stereo_full_width": launches[k],
                    "rgbd_full_width": launches_rgbd[k],
-                   "mono_known": launches_mono[k]}
+                   "mono_known": launches_mono[k],
+                   "stereo_blackout": launches_bo[k],
+                   "stereo_loop": launches_loop[k]}
         kernels.append({
             "name": k, "route": "cuda",
             "source": f"vieo_slam_tpu_torch/csrc/{src}",
@@ -885,6 +1241,7 @@ def main():
             "device_ms": r["device_ms"],
             **{x: r[x] for x in ("pair_ms", "pair_device_ms", "candidates",
                                  "survivors", "corners") if x in r}})
+    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,9 +28,11 @@ from vieo_slam_tpu.sim import world as jworld
 from vieo_slam_tpu.system import System as JSystem
 from vieo_slam_tpu.system import SystemConfig as JSystemConfig
 from vieo_slam_tpu_torch import convert
+from vieo_slam_tpu_torch.backend.loop_closing import LoopCloser
 from vieo_slam_tpu_torch.cameras import models as tcm
 from vieo_slam_tpu_torch.frontend import frame as tframe
 from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
+from vieo_slam_tpu_torch.map.map_state import MapConfig, MapState
 from vieo_slam_tpu_torch.ops import orb as torb
 from vieo_slam_tpu_torch.sim import world as tworld
 from vieo_slam_tpu_torch.system import System, SystemConfig
@@ -232,3 +234,5 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         torb.extract_orb(img, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         tframe.build_stereo_frame(img, img, cfg, bf=BF)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoopCloser(cam, BF, MapState(MapConfig()))

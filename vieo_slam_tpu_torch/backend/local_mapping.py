@@ -5,8 +5,10 @@ run synchronously after keyframe insertion: create close landmarks from
 stereo depth (after fusing existing ones, kernel B4), triangulate against
 covisible keyframes (kernel B3), cull probation landmarks, run the
 windowed BA, cull redundant keyframes.  Window selection and bookkeeping
-are host-side numpy; the heavy steps run on the mapper's device.
-Global BA comes with loop closing.
+are host-side numpy; the heavy steps run on the mapper's device.  Global
+BA (`run_global_ba`) runs after a loop closure and at shutdown: the
+single-device chunked solve; the distributed branch comes with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from ..cameras import models as cm
 from ..frontend.frame import desc_to_tensor
 from ..map.map_state import MapState
 from ..ops import matching
-from ..solvers.local_ba import BAProblem, local_ba
+from ..math.lie import normalize_rotation_np
+from ..solvers.local_ba import BAProblem, landmark_refit_chi2, local_ba
 from ..utils.device import resolve_device
 from ..utils.metrics import metrics
 from .triangulation import triangulate_pair
@@ -44,6 +47,12 @@ class LocalMappingConfig:
     # Never cull a KF whose removal leaves a temporal hole longer than
     # this between its chain neighbours (seconds).
     kf_cull_max_gap: float = 2.0
+    # Pre-GBA moving-object cull: erase landmarks whose refit median chi2
+    # exceeds this (no single static 3D point explains their observations;
+    # static landmarks refit to chi2 ~1, moving ones to hundreds).  0
+    # disables.
+    gba_moving_cull_chi2: float = 20.0
+    gba_moving_cull_min_obs: int = 4
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -259,6 +268,114 @@ class LocalMapper:
                 m.kf_lm_idx[obs_kf[mm, oo], obs_kp[mm, oo]] = -1
                 np.add.at(m.lm_n_obs, lm_ids[mm], -1)
                 m.version += 1
+
+    def run_global_ba(self, *, stage_iters=(8, 12), abort=None,
+                      correction_sinks=None) -> bool:
+        """Full-map BA: all keyframes free except the first (gauge), all
+        landmarks.  Run after a loop closure and by System.final_global_ba.
+
+        One solve per stage of `stage_iters`, the outlier classification
+        carried from one into the next.  abort: optional threading.Event,
+        checked between the chunks and before the write-back; an aborted
+        GBA discards its result and returns False."""
+        m = self.map
+
+        def aborted():
+            return abort is not None and abort.is_set()
+
+        with m.lock:
+            kfs = m.keyframe_ids()
+            if len(kfs) < 3:
+                return False
+            lm_ids = m.landmarks_in_keyframes(kfs)
+            lm_ids = lm_ids[m.lm_valid[lm_ids]]
+            if lm_ids.size < 10:
+                return False
+            prob_np, kf_order, lm_ids = m.build_ba_problem(kfs[1:], kfs[:1],
+                                                           lm_ids)
+            snap_next_kf = m._next_kf
+        prob = self._pad_problem(prob_np)
+        K, M = len(kf_order), len(lm_ids)
+        if self.cfg.gba_moving_cull_chi2 > 0:
+            med, n_obs = landmark_refit_chi2(prob, self.cam, self.bf)
+            med, n_obs = _np(med)[:M], _np(n_obs)[:M]
+            bad = (med > self.cfg.gba_moving_cull_chi2) \
+                & (n_obs >= self.cfg.gba_moving_cull_min_obs)
+            if bad.any():
+                metrics.count("gba_moving_culled", int(bad.sum()))
+                with m.lock:
+                    m.erase_landmarks(lm_ids[bad])
+                mask = np.ones(prob.pw.shape[0], bool)
+                mask[:M][bad] = False
+                mj = self._t(mask)
+                prob = prob._replace(lm_valid=prob.lm_valid & mj,
+                                     obs_valid=prob.obs_valid & mj[:, None])
+        res = None
+        active = None
+        for it in stage_iters:
+            if aborted():
+                return False
+            res = local_ba(prob, self.cam, self.bf, stage_iters=(it,),
+                           init_active=active)
+            prob = prob._replace(Rcw=res.Rcw, tcw=res.tcw, pw=res.pw)
+            active = res.obs_inlier
+        Rcw = _np(res.Rcw)[:K]
+        tcw = _np(res.tcw)[:K]
+        pw = _np(res.pw)[:M]
+        if aborted():
+            return False
+        with m.lock:
+            return self._apply_gba_result(
+                kf_order, lm_ids, Rcw, tcw, pw, n_free=K - 1,
+                snap_next_kf=snap_next_kf, correction_sinks=correction_sinks)
+
+    def _apply_gba_result(self, kf_order, lm_ids, Rcw, tcw, pw, *,
+                          n_free: int, snap_next_kf: int,
+                          correction_sinks=None) -> bool:
+        """GBA write-back, and its propagation to keyframes created while
+        the solve ran (re-anchored on their temporal-chain predecessor)
+        and to landmarks outside the solved set (moved with their
+        reference keyframe).  Every sink gets push_correction(R_old,
+        t_old, R_new, t_new) of the newest keyframe.  Caller holds
+        map.lock."""
+        m = self.map
+        R_before = m.kf_Rcw.copy()
+        t_before = m.kf_tcw.copy()
+        if not m.apply_ba_result(kf_order, lm_ids, Rcw, tcw, pw,
+                                 n_free=n_free):
+            return False
+        corrected = set(int(x) for x in kf_order)
+        for k in (int(k) for k in m.keyframe_ids() if k >= snap_next_kf):
+            a = int(m.kf_prev[k])
+            while a >= 0 and a not in corrected:
+                a = int(m.kf_prev[a])
+            if a < 0:
+                continue
+            R_rel = m.kf_Rcw[k] @ R_before[a].T
+            t_rel = m.kf_tcw[k] - R_rel @ t_before[a]
+            R_old = m.kf_Rcw[k].copy()
+            t_old = m.kf_tcw[k].copy()
+            m.kf_Rcw[k] = normalize_rotation_np((R_rel @ m.kf_Rcw[a])[None])[0]
+            m.kf_tcw[k] = R_rel @ m.kf_tcw[a] + t_rel
+            m.apply_gauge_correction([k], R_old[None], t_old[None])
+        other = np.setdiff1d(np.nonzero(m.lm_valid)[0], lm_ids)
+        if other.size:
+            ref = m.lm_ref_kf[other]
+            ok = ref >= 0
+            other, ref = other[ok], ref[ok]
+            pc = (np.einsum("kij,kj->ki", R_before[ref], m.lm_pw[other])
+                  + t_before[ref])
+            m.lm_pw[other] = np.einsum(
+                "kji,kj->ki", m.kf_Rcw[ref],
+                pc - m.kf_tcw[ref]).astype(np.float32)
+        if correction_sinks:
+            last = int(m.keyframe_ids()[-1])
+            for sink in correction_sinks:
+                sink.push_correction(R_before[last], t_before[last],
+                                     m.kf_Rcw[last].copy(),
+                                     m.kf_tcw[last].copy())
+        m.big_change_idx += 1
+        return True
 
     def _pad_problem(self, p: dict) -> BAProblem:
         cfg = self.cfg

@@ -17,8 +17,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .backend.loop_closing import LoopCloser, LoopClosingConfig
 from .cameras import models as cm
 from .frontend.frame import Frame, make_frame_from_features
+from .loop.keyframe_db import KeyFrameDatabase
+from .loop.vocabulary import Vocabulary
 from .map.map_state import MapConfig, MapState
 from .ops.orb import OrbConfig
 from .solvers.initializer import MonoInitResult
@@ -94,3 +97,40 @@ def mono_init_result_from_jax(jres, device="cpu") -> MonoInitResult:
     """A port MonoInitResult from the JAX package's."""
     return MonoInitResult(*(torch.from_numpy(np.array(x)).to(device)
                             for x in jres))
+
+
+def vocabulary_from_jax(jvoc) -> Vocabulary:
+    """A copy of the JAX package's Vocabulary (tree and idf)."""
+    return Vocabulary(k=int(jvoc.k), L=int(jvoc.L),
+                      node_desc=np.array(jvoc.node_desc, np.uint32),
+                      idf=np.array(jvoc.idf, np.float32))
+
+
+def loop_closing_config_from_jax(jcfg) -> LoopClosingConfig:
+    return LoopClosingConfig(**{f.name: getattr(jcfg, f.name)
+                                for f in dataclasses.fields(LoopClosingConfig)})
+
+
+def loop_closer_from_jax(jlc, cam: cm.Camera, map_state: MapState,
+                         device=None) -> LoopCloser:
+    """The port's LoopCloser over `map_state` in the JAX closer's state:
+    vocabulary, keyframe BoWs and database, consistency streaks, the last
+    loop keyframe and the loop edges."""
+    lc = LoopCloser(cam, jlc.bf, map_state,
+                    loop_closing_config_from_jax(jlc.cfg),
+                    vocabulary=None if jlc.voc is None
+                    else vocabulary_from_jax(jlc.voc), device=device)
+    lc.kf_bow = {int(k): np.array(v, np.float32)
+                 for k, v in jlc.kf_bow.items()}
+    if jlc.db is not None:
+        lc.db = KeyFrameDatabase(1, 1)
+        lc.db.bows = np.array(jlc.db.bows, np.float32)
+        lc.db.present = np.array(jlc.db.present, bool)
+    lc._pending = {int(k): int(v) for k, v in jlc._pending.items()}
+    lc.last_loop_kf = int(jlc.last_loop_kf)
+    lc.loop_edges = [(int(a), int(b), np.array(R, np.float32),
+                      np.array(t, np.float32))
+                     for a, b, R, t in jlc.loop_edges]
+    lc.n_loops_closed = int(jlc.n_loops_closed)
+    lc.total_fuse_count = int(jlc.total_fuse_count)
+    return lc

@@ -5,8 +5,10 @@ RGB-D and monocular): the host runs the small state machine and local-map
 selection; the per-frame heavy step -- projecting a fixed-capacity
 landmark slab, windowed Hamming association (kernel B4) and motion-only
 BA -- runs as tensor code on the frame's device, as does the two-view
-monocular initializer (descriptor matching in kernel B3).  Relocalization
-and the odometry predictions come with their slices.
+monocular initializer (descriptor matching in kernel B3).  A LOST frame
+is relocalized by frontend/relocalization.py (System.track_frame calls it
+when a loop closer is attached); the odometry predictions come with their
+slices.
 """
 
 from __future__ import annotations
@@ -125,6 +127,7 @@ class Tracker:
         self.frame_id = 0
         self.ref_tracked = 0         # inlier count at last KF creation
         self.last_new_kf: Optional[int] = None  # KF created this frame
+        self.just_relocalized = False    # set by relocalization
         self._mono_init_frame: Optional[Frame] = None  # held reference
         # trajectory log: (timestamp, Rcw, tcw, state)
         self.trajectory = []

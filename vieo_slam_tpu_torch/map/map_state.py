@@ -18,6 +18,7 @@ keypoint i in keyframe k, -1 if none) and regrouped landmark-major
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -99,6 +100,14 @@ class MapState:
     # ------------------------------------------------------------------
     # capacity growth (long sequences must not crash at fixed caps)
     # ------------------------------------------------------------------
+
+    def copy(self) -> "MapState":
+        """An independent copy of the map, with its own lock and caches."""
+        m = MapState(self.cfg)
+        for name, value in self.__dict__.items():
+            if name not in ("lock", "_covis_cache"):
+                setattr(m, name, copy.deepcopy(value))
+        return m
 
     def _grow_keyframes(self, new_K: int):
         K = self.cfg.max_keyframes

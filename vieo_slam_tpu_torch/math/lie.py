@@ -1,9 +1,9 @@
 """SO(3) / SE(3) toolbox on batched tensors.
 
-Port of the SO(3)/SE(3) part of vieo_slam_tpu/math/lie.py: every
+Port of the SO(3)/SE(3)/Sim(3) part of vieo_slam_tpu/math/lie.py: every
 function broadcasts over leading batch dimensions, small angles go
 through Taylor branches selected with torch.where (no data-dependent
-Python branching).  Sim(3) comes with loop closing.
+Python branching).  Sim(3), for loop closing, is at the end.
 
 Conventions: rotations are 3x3 matrices acting on column vectors;
 SE(3) tangent ordering is [rho(3), phi(3)] (translation first).
@@ -203,3 +203,88 @@ def se3_compose(Ra, ta, Rb, tb):
 
 def se3_apply(R, t, p):
     return torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project [..., 3, 3] near-rotations onto SO(3) (SVD, det +1)."""
+    U, _, Vh = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vh)
+    one = torch.ones_like(det)
+    fix = torch.stack([one, one, det], dim=-1)
+    return (U * fix[..., None, :]) @ Vh
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s), used by loop closing.  Tangent [rho(3), phi(3), sigma].
+# ---------------------------------------------------------------------------
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = torch.reciprocal(s)
+    return (Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t),
+            s_inv)
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    return (Ra @ Rb,
+            sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta,
+            sa * sb)
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The closed-form W of Sim(3)'s exponential (t = W rho), with the
+    small-angle and small-sigma branches of the JAX package."""
+    s = torch.exp(sigma)
+    theta_sq = _sq_norm(phi)
+    small_t = theta_sq < _EPS
+    safe_sq = torch.where(small_t, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(safe_sq)
+    small_s = torch.abs(sigma) < 1e-5
+    safe_sigma = torch.where(small_s, torch.ones_like(sigma), sigma)
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    a = sigma * sigma + theta_sq
+    C_ = torch.where(small_s, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                     (s - 1.0) / safe_sigma)
+    A_gen = (s * sin_t * sigma + (1.0 - s * cos_t) * theta) / (theta * a)
+    A_small_sigma = (1.0 - cos_t) / safe_sq
+    A_small_theta = ((sigma - 1.0) * s + 1.0) / (safe_sigma * safe_sigma)
+    A_tiny = 0.5 + sigma / 6.0
+    A_ = torch.where(small_s & small_t, A_tiny, torch.where(
+        small_s, A_small_sigma, torch.where(small_t, A_small_theta, A_gen)))
+    B_gen = (C_ - ((s * cos_t - 1.0) * sigma + s * sin_t * theta) / a) \
+        / safe_sq
+    B_small_sigma = (theta - sin_t) / (safe_sq * theta)
+    B_tiny = 1.0 / 6.0 + sigma / 24.0
+    B_ = torch.where(small_s & small_t, B_tiny, torch.where(
+        small_s, B_small_sigma, torch.where(small_t, B_tiny, B_gen)))
+    K = hat(phi)
+    return (C_[..., None, None] * _eye_like(phi, K.shape)
+            + A_[..., None, None] * K + B_[..., None, None] * (K @ K))
+
+
+def sim3_exp(xi: torch.Tensor):
+    """xi = [rho, phi, sigma] [..., 7] -> (R, t, s)."""
+    if xi.dim() == 1:
+        # A 0-d sigma meets Python scalars here, which forward-mode AD
+        # (torch.func.jacfwd) promotes to f64: run it with a batch of one.
+        return tuple(x[0] for x in sim3_exp(xi[None]))
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    W = _sim3_W(phi, sigma)
+    return (so3_exp(phi), torch.einsum("...ij,...j->...i", W, rho),
+            torch.exp(sigma))
+
+
+def sim3_log(R, t, s):
+    """Inverse of sim3_exp: solves W rho = t with the closed-form W."""
+    if t.dim() == 1:            # see sim3_exp
+        return sim3_log(R[None], t[None], s[None])[0]
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    W = _sim3_W(phi, sigma)
+    rho = torch.linalg.solve_ex(W, t[..., None])[0][..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

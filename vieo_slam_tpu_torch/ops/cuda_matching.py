@@ -30,18 +30,23 @@ INF = 1 << 30
 _ROW_BITS = 22          # packed column key: (dist << 22) | row
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 element, as int64."""
+    x = x.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """[M, 8] x [N, 8] int32 descriptor bits -> [M, N] int32 distances."""
     M, N = desc_a.shape[0], desc_b.shape[0]
     dist = torch.zeros((M, N), dtype=torch.int64, device=desc_a.device)
     for w in range(desc_a.shape[1]):
-        x = (desc_a[:, w, None] ^ desc_b[None, :, w]).long() & 0xFFFFFFFF
-        x = x - ((x >> 1) & 0x55555555)
-        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-        x = (x + (x >> 4)) & 0x0F0F0F0F
-        x = x + (x >> 8)
-        x = x + (x >> 16)
-        dist += x & 0x3F
+        dist += popcount32(desc_a[:, w, None] ^ desc_b[None, :, w])
     return dist.int()
 
 

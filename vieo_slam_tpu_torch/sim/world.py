@@ -3,9 +3,11 @@
 Port of the pixel-rendering part of vieo_slam_tpu/sim/world.py: a field
 of landmarks with fixed texture stamps, rendered through a pinhole camera
 into grayscale views (optionally with a per-pixel depth map, photometric
-noise and brightness drift) and stereo pairs, plus the circle trajectory.  Numpy, with the
-port's own `cameras.project`; the same seed gives the same world and the
-same images as the JAX package's renderer.
+noise and brightness drift) and stereo pairs, plus the circle trajectory.
+A fraction of the landmarks may oscillate through the world (dynamic
+scene content).  Numpy, with the port's own `cameras.project`; the same
+seed gives the same world and the same images as the JAX package's
+renderer.
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ class WorldConfig:
     n_landmarks: int = 3000
     extent: tuple = (20.0, 12.0, 6.0)   # x, y, z box size
     seed: int = 0
+    # This fraction of the landmarks oscillates through the world
+    # (non-rigid outliers, as moving objects are on real sequences).
+    dynamic_frac: float = 0.0
+    dynamic_amp: float = 0.4            # metres of peak excursion
+    dynamic_omega: float = 1.3          # rad/s
 
 
 class SyntheticWorld:
@@ -44,7 +51,30 @@ class SyntheticWorld:
         # same generator, so the same seed gives the same descriptors.
         self.desc = rng.randint(0, 2 ** 32, (n, 8), np.uint64).astype(
             np.uint32)
+        # The JAX world's octave and saliency draws (its feature-level
+        # observer's), kept so that the dynamic subset below is drawn from
+        # the same generator state.
+        rng.randint(0, 3, n)
+        rng.rand(n)
         self._patches = None
+        n_dyn = int(round(cfg.dynamic_frac * n))
+        self.dynamic_ids = rng.choice(n, n_dyn, replace=False) \
+            if n_dyn else np.zeros(0, np.int64)
+        self._dyn_dir = rng.randn(n_dyn, 3).astype(np.float32)
+        if n_dyn:
+            self._dyn_dir /= np.linalg.norm(self._dyn_dir, axis=1,
+                                            keepdims=True)
+        self._dyn_phase = rng.rand(n_dyn).astype(np.float32) * 2 * np.pi
+
+    def pw_at(self, t: float) -> np.ndarray:
+        """Landmark positions at time t (the dynamic subset oscillates)."""
+        if not len(self.dynamic_ids):
+            return self.pw
+        pw = self.pw.copy()
+        off = np.sin(self.cfg.dynamic_omega * t + self._dyn_phase)
+        pw[self.dynamic_ids] += (self.cfg.dynamic_amp
+                                 * off[:, None] * self._dyn_dir)
+        return pw
 
     def _landmark_patches(self, size: int = 12):
         """Per-landmark fixed texture stamp: a 2x-upsampled random block
@@ -58,7 +88,8 @@ class SyntheticWorld:
         return self._patches
 
     def render_view(self, cam: cm.Camera, Rcw, tcw, *, bg_level: float = 96.0,
-                    min_depth: float = 0.2, noise_sigma: float = 0.0,
+                    min_depth: float = 0.2, t: float = 0.0,
+                    noise_sigma: float = 0.0,
                     gain: float = 1.0, bias: float = 0.0, rng=None,
                     return_depth: bool = False,
                     depth_outlier_frac: float = 0.0):
@@ -66,7 +97,8 @@ class SyntheticWorld:
         texture at its projected sub-pixel position (bilinear shift),
         far to near, over a flat background.
 
-        noise_sigma: additive Gaussian photometric noise (drawn from `rng`,
+        t: scene time (dynamic landmarks move); noise_sigma: additive
+        Gaussian photometric noise (drawn from `rng`,
         a numpy RandomState, or numpy's global generator); gain/bias:
         brightness drift I' = gain * I + bias; return_depth: also return
         the per-pixel depth map of an RGB-D sensor (0 = no reading), with
@@ -75,7 +107,7 @@ class SyntheticWorld:
         H, W = cam.height, cam.width
         img = np.full((H, W), bg_level, np.float32)
         depth_map = np.zeros((H, W), np.float32) if return_depth else None
-        pc = self.pw @ np.asarray(Rcw).T + np.asarray(tcw)
+        pc = self.pw_at(t) @ np.asarray(Rcw).T + np.asarray(tcw)
         uv = cm.project(cam, torch.from_numpy(
             np.ascontiguousarray(pc, np.float32))).numpy()
         patches = self._landmark_patches()

@@ -206,3 +206,42 @@ def local_ba(prob: BAProblem, cam: cm.Camera, bf=0.0, *,
         active = torch.where(frac > 0.2, gated, prob.obs_valid)
     return BAResult(Rcw=Rcw, tcw=tcw, pw=pw,
                     obs_inlier=active & prob.obs_valid, cost=cost)
+
+
+def landmark_refit_chi2(prob: BAProblem, cam: cm.Camera, bf):
+    """Best-static-point consistency per landmark.
+
+    Refit every landmark position alone (3 damped Gauss-Newton steps on
+    its 3x3 system, poses fixed) and return the median per-observation
+    chi2 at the refit position: a static landmark refits to sub-pixel
+    residuals, a moving one (dynamic scene content) admits no single 3D
+    point and keeps a large median -- what GBA's moving-landmark cull
+    reads.  Returns (med_chi2 [M], n_obs [M])."""
+    Rcw, tcw = prob.Rcw, prob.tcw
+    bf = torch.as_tensor(bf, dtype=prob.tcw.dtype, device=prob.tcw.device)
+    use0 = prob.obs_valid & (prob.obs_kf >= 0)
+    pw = prob.pw
+    eye3 = torch.eye(3, dtype=pw.dtype, device=pw.device)
+    for _ in range(3):
+        r, _, Jl, chi2, delta2, depth_ok = _obs_terms(Rcw, tcw, pw, prob,
+                                                      cam, bf)
+        w = huber_weight(chi2, delta2) * prob.obs_inv_sigma2 \
+            * (use0 & depth_ok)
+        V = torch.einsum("mori,mo,morj->mij", Jl, w, Jl)
+        bl = -torch.einsum("mori,mo,mor->mi", Jl, w, r)
+        tr = torch.clamp_min(torch.diagonal(V, dim1=-2, dim2=-1).sum(-1),
+                             1e-8)
+        dl = torch.einsum("mij,mj->mi", inv3x3(V + (1e-3 * tr)[:, None, None]
+                                               * eye3), bl)
+        has = torch.sum(w, dim=-1) > 0
+        pw = pw + torch.where(has[:, None], dl, torch.zeros_like(dl))
+    _, _, _, chi2, _, depth_ok = _obs_terms(Rcw, tcw, pw, prob, cam, bf)
+    valid = use0 & depth_ok
+    n_obs = torch.sum(valid, dim=-1)
+    # masked median: invalid slots sort to +inf, take the (n-1)//2-th
+    c = torch.sort(torch.where(valid, chi2, torch.full_like(chi2,
+                                                            float("inf"))),
+                   dim=-1).values
+    idx = ((n_obs - 1) // 2).clamp(0, c.shape[-1] - 1)
+    med = torch.gather(c, 1, idx[:, None])[:, 0]
+    return torch.where(n_obs > 0, med, torch.zeros_like(med)), n_obs
