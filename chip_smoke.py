@@ -47,22 +47,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
   9. stereo blackout at full width (place recognition): the
      stereo_blackout row of examples/evaluate_ntimes.py at 752x480, 1200
      features, 8 levels -- 2200 landmarks (2 % of them moving), an outward
-     circle at 0.35 rad/s, 60 frames, photometric noise and drift (the
-     noise of the row's first run, seed 11), frames 36-47 black -- with a
-     LoopCloser attached.  Counters zeroed before and
-     read after, and read around every relocalization call: it must
+     circle at 0.35 rad/s, 60 frames, photometric noise and drift, frames
+     36-47 black -- with a LoopCloser attached, once at each noise seed of
+     PLACE_SEEDS (0, and 11, the row's first run).  Counters zeroed before
+     and read after, and read around every relocalization call: it must
      relocalize at least once, be OK again by frame 53 and never LOST after
      the first recovery, with the keyframe ATE after the recovery under
      0.02 m, and B3 and B4 launched inside the relocalization calls.  Then
      the host waits of one relocalization, from torch.profiler.
  10. stereo loop at full width: the stereo_loop row (4000 landmarks, 2 %
      moving, a 1.5 m outward circle at 180 frames a lap, 360 frames,
-     min_kf_gap 30, seed 11), same sizes.  Bars: 0 LOST, a loop closed, fused
-     points > 0, keyframe ATE after the final global BA < 0.02 m, B3 and
-     B4 launched inside loop_closer.process_keyframe.  Prints the keyframe
-     ATE before and after the first closure and without and with the final
-     GBA, the ms of relocalization, loop closing, GBA and final GBA, and
-     the host waits of one closure.
+     min_kf_gap 30), same sizes and seeds.  Bars: 0 LOST, a loop closed,
+     fused points > 0, keyframe ATE after the final global BA < 0.02 m, B3
+     and B4 launched inside loop_closer.process_keyframe.  Prints the
+     keyframe ATE before and after the first closure and without and with
+     the final GBA, the ms of relocalization, loop closing (split between
+     candidate verification and the work around it; the closing keyframe
+     alone), GBA and final GBA, and the host waits of one closure.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -105,9 +106,12 @@ LOOP_WORLD = dict(n_landmarks=4000, seed=4, extent=(8.0, 6.0, 3.0),
                   dynamic_frac=DYNAMIC_FRAC)
 LOOP_RADIUS = 1.5
 LOOP_FRAMES_PER_LAP = 180
-# The noise seed of the first run of each row in evaluate_ntimes.py
-# (seed0 + 7 * run), so that these runs are comparable with its rows.
-PLACE_SEED = 11
+# Noise seeds of the place-recognition phases: 0, and 11, the first run
+# of each row in evaluate_ntimes.py (seed0 + 7 * run), comparable with
+# its rows.  Seed 0 is the harder of the two at full width (§6 of
+# PERF.md): its closure raises the keyframe ATE and its recovered map
+# keeps an offset.
+PLACE_SEEDS = (0, 11)
 
 
 def log(msg):
@@ -747,14 +751,16 @@ def host_waits(torch, fn):
                               "cudaMemcpyAsync", "cudaEventSynchronize")}
 
 
-def run_place_recognition(torch, dev, row, n_frames=None, width=752,
-                          n_features=1200, n_levels=8, seed=PLACE_SEED):
+def run_place_recognition(torch, dev, row, seed, width=752,
+                          n_features=1200, n_levels=8):
     """The stereo_blackout or stereo_loop row of examples/evaluate_ntimes.py
     through build_stereo_frame + System.track_frame with a LoopCloser
     attached, images rendered frame by frame.  Returns a dict of the
-    system, the states, the ATEs, the launches counted inside the
-    relocalization calls and inside loop_closer.process_keyframe, and the
-    inputs of the last recovery frame."""
+    system, the states, the ATEs, the launches counted and the host
+    seconds spent inside the relocalization calls, inside
+    loop_closer.process_keyframe and inside its candidate verification
+    (_try_close), the inputs of the last recovery frame, and the state
+    before the first closure."""
     from vieo_slam_tpu_torch.backend.loop_closing import (
         LoopCloser, LoopClosingConfig)
     from vieo_slam_tpu_torch.cameras import models as cm
@@ -768,7 +774,7 @@ def run_place_recognition(torch, dev, row, n_frames=None, width=752,
     from vieo_slam_tpu_torch.utils.metrics import metrics
 
     loop = row == "stereo_loop"
-    n = n_frames or (2 * LOOP_FRAMES_PER_LAP if loop else 60)
+    n = 2 * LOOP_FRAMES_PER_LAP if loop else 60
     s = width / 640.0
     cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0, width,
                           480)
@@ -806,14 +812,20 @@ def run_place_recognition(torch, dev, row, n_frames=None, width=752,
         p = np.stack([-(m.kf_Rcw[k].T @ m.kf_tcw[k]) for k in kfs])
         return ate(m.kf_timestamp[kfs], p, ts, twc)["rmse"]
 
-    inside = {"reloc": {}, "loop": {}}
+    inside = {"reloc": {}, "loop": {}, "verify": {}}
+    # (host seconds, result) of each wrapped call
+    spent = {"reloc": [], "loop": [], "verify": []}
 
     def counted(kind, fn):
         def wrapped(*a, **kw):
             before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = None
             try:
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
+                return out
             finally:
+                spent[kind].append((time.perf_counter() - t0, out))
                 acc = inside[kind]
                 for k, v in cuda_build.LAUNCHES.items():
                     acc[k] = acc.get(k, 0) + v - before[k]
@@ -823,29 +835,29 @@ def run_place_recognition(torch, dev, row, n_frames=None, width=752,
     relocalization.try_relocalize = counted("reloc", reloc_orig)
     lc = system.loop_closer
     lc.process_keyframe = counted("loop", lc.process_keyframe)
-    closures = []
+    lc._try_close = counted("verify", lc._try_close)
+    # The ATE around each closure, and the state before the first one, to
+    # replay it under the profiler.  _try_close changes nothing before it
+    # calls _correct_loop, so the copy taken here is the state its call
+    # started from.  This hook runs inside the loop-closing stage timer:
+    # its own seconds are kept and taken out of the times reported.
+    closures, replay, hook_s = [], {}, []
     correct_orig = lc._correct_loop
 
     def correct_hooked(k, c, S_ck):
+        t0 = time.perf_counter()
+        if not replay:
+            replay.update(k=k, c=c, state=(
+                system.map.copy(), lc.db.bows.copy(), lc.db.present.copy(),
+                dict(lc.kf_bow), lc.last_loop_kf, list(lc.loop_edges)))
         pre = kf_ate()
+        dt = time.perf_counter() - t0
         correct_orig(k, c, S_ck)
+        t0 = time.perf_counter()
         closures.append((k, c, pre, kf_ate()))
+        hook_s.append(dt + time.perf_counter() - t0)
 
     lc._correct_loop = correct_hooked
-    # The state before the first closure, to replay it under the profiler.
-    replay = {}
-    try_close_orig = lc._try_close
-
-    def try_close_hooked(k, c):
-        before = None if replay else (
-            system.map.copy(), lc.db.bows.copy(), lc.db.present.copy(),
-            dict(lc.kf_bow), lc.last_loop_kf, list(lc.loop_edges))
-        closed = try_close_orig(k, c)
-        if closed and before is not None:
-            replay.update(k=k, c=c, state=before)
-        return closed
-
-    lc._try_close = try_close_hooked
     states, recovered_at, last_frame = [], None, None
     t0 = time.perf_counter()
     try:
@@ -876,8 +888,8 @@ def run_place_recognition(torch, dev, row, n_frames=None, width=752,
     system.final_global_ba()
     out = dict(system=system, states=states, n=n, ts=ts, bo=bo,
                recovered_at=recovered_at, last_frame=last_frame,
-               inside=inside, closures=closures, replay=replay,
-               run_s=run_s,
+               inside=inside, spent=spent, hook_s=hook_s,
+               closures=closures, replay=replay, run_s=run_s,
                ate_no_gba=pre_gba, ate_gba=kf_ate(),
                ate_post_recovery=kf_ate(float(ts[bo[1]])) if bo[1] > 0
                else None,
@@ -900,6 +912,27 @@ def replay_closure(lc, replay):
     lc2.last_loop_kf = last_loop_kf
     lc2.loop_edges = list(loop_edges)
     return lc2._try_close(replay["k"], replay["c"])
+
+
+def loop_closing_ms(out):
+    """Host ms of loop_closer.process_keyframe with the seconds of
+    run_place_recognition's closure hook taken out: the mean over all
+    keyframes, the keyframe that closed the first loop, and the split
+    between candidate verification (_try_close: calls, ms in all) and the
+    per-keyframe work around it (the purge, the BoW descent, the database
+    query and insert: ms a keyframe)."""
+    calls, verify, hook = (out["spent"]["loop"], out["spent"]["verify"],
+                           out["hook_s"])
+    if not calls:
+        return None
+    total = sum(dt for dt, _ in calls) - sum(hook)
+    verify_s = sum(dt for dt, _ in verify) - sum(hook)
+    closing = next((dt for dt, closed in calls if closed), None)
+    return dict(
+        n_kf=len(calls), per_kf=1e3 * total / len(calls),
+        closing_kf=None if closing is None else 1e3 * (closing - hook[0]),
+        verify_calls=len(verify), verify_ms=1e3 * verify_s,
+        rest_per_kf=1e3 * (total - verify_s) / len(calls))
 
 
 def stage_ms(report, name):
@@ -1131,82 +1164,104 @@ def main():
                                       profile_from=prof_from)
     summarize_profile(prof, prof_s, n_prof - prof_from)
 
-    # 9. stereo blackout at full width: relocalization
+    # 9. stereo blackout at full width: relocalization, at each noise seed
     from vieo_slam_tpu_torch.frontend.relocalization import try_relocalize
 
-    cuda_build.reset_launches()
-    bo = run_place_recognition(torch, dev, "stereo_blackout")
-    launches_bo = dict(cuda_build.LAUNCHES)
-    system, states = bo["system"], bo["states"]
-    rec = bo["recovered_at"]
-    n_reloc = bo["report"]["counters"].get("reloc_success", 0)
-    lost_after = sum(x == "LOST" for x in states[rec + 1:]) if rec is not None \
-        else None
-    first_ok = next((i for i in range(bo["bo"][1], bo["n"])
-                     if states[i] == "OK"), None)
-    n_rl, rl_mean, _ = stage_ms(bo["report"], "relocalize")
-    log(f"[9 stereo blackout] {bo['n']} frames 752x480, 1200 features, 8 "
-        f"levels, frames {bo['bo'][0]}-{bo['bo'][1] - 1} black: LOST "
-        f"{states.count('LOST')} frames, {n_reloc} relocalizations of "
-        f"{bo['report']['counters'].get('reloc_attempts', 0)} attempts, first "
-        f"at frame {rec}, OK again from frame {first_ok}, LOST after the first "
-        f"recovery {lost_after}; keyframe ATE after the recovery "
-        f"{bo['ate_post_recovery']:.5f} m, whole run without / with the final "
-        f"GBA {bo['ate_no_gba']:.5f} / {bo['ate_gba']:.5f} m; "
-        f"{system.map.n_keyframes()} keyframes, {system.map.n_landmarks()} "
-        f"landmarks; launches {launches_bo}, inside the relocalization calls "
-        f"{bo['inside']['reloc']} ({bo['run_s']:.1f} s)")
-    log(f"[9 stereo blackout] ms: relocalize {rl_mean:.2f} mean over {n_rl} "
-        f"calls, final GBA {stage_ms(bo['report'], 'final_gba')[1]:.2f}, stages "
-        f"{ {k: v['mean'] for k, v in bo['report']['stages_ms'].items()} }")
-    if not n_reloc or first_ok is None or first_ok > 53 or lost_after \
-            or not bo["ate_post_recovery"] < 0.02:
-        fail("stereo blackout misses its bars")
-    if not (bo["inside"]["reloc"].get("fused_best2", 0) > 0
-            and bo["inside"]["reloc"].get("fused_projection_best2", 0) > 0):
-        fail(f"relocalization did not launch B3 and B4: "
-             f"{bo['inside']['reloc']}")
-    ok, waits = host_waits(torch, lambda: try_relocalize(
-        system, system.loop_closer, bo["last_frame"]))
-    log(f"[9 stereo blackout] host waits of one relocalization (the recovery "
-        f"frame again, {'recovered' if ok else 'not recovered'}): {waits}")
+    launches_place = {}
+    for seed in PLACE_SEEDS:
+        tag = f"[9 stereo blackout, seed {seed}]"
+        cuda_build.reset_launches()
+        bo = run_place_recognition(torch, dev, "stereo_blackout", seed)
+        launches_place["stereo_blackout", seed] = dict(cuda_build.LAUNCHES)
+        system, states = bo["system"], bo["states"]
+        rec = bo["recovered_at"]
+        n_reloc = bo["report"]["counters"].get("reloc_success", 0)
+        lost_after = sum(x == "LOST" for x in states[rec + 1:]) \
+            if rec is not None else None
+        first_ok = next((i for i in range(bo["bo"][1], bo["n"])
+                         if states[i] == "OK"), None)
+        n_rl, rl_mean, _ = stage_ms(bo["report"], "relocalize")
+        log(f"{tag} {bo['n']} frames 752x480, 1200 features, 8 levels, "
+            f"frames {bo['bo'][0]}-{bo['bo'][1] - 1} black: LOST "
+            f"{states.count('LOST')} frames, {n_reloc} relocalizations of "
+            f"{bo['report']['counters'].get('reloc_attempts', 0)} attempts, "
+            f"first at frame {rec}, OK again from frame {first_ok}, LOST "
+            f"after the first recovery {lost_after}; keyframe ATE after the "
+            f"recovery {bo['ate_post_recovery']:.5f} m, whole run without / "
+            f"with the final GBA {bo['ate_no_gba']:.5f} / "
+            f"{bo['ate_gba']:.5f} m; {system.map.n_keyframes()} keyframes, "
+            f"{system.map.n_landmarks()} landmarks; launches "
+            f"{launches_place['stereo_blackout', seed]}, inside the "
+            f"relocalization calls {bo['inside']['reloc']} "
+            f"({bo['run_s']:.1f} s)")
+        lcm = loop_closing_ms(bo)
+        log(f"{tag} ms: relocalize {rl_mean:.2f} mean over {n_rl} calls, "
+            f"final GBA {stage_ms(bo['report'], 'final_gba')[1]:.2f}, loop "
+            f"closing {lcm['per_kf']:.2f} a keyframe over {lcm['n_kf']} "
+            f"({lcm['rest_per_kf']:.2f} around verification, "
+            f"{lcm['verify_calls']} verifications in {lcm['verify_ms']:.2f}), "
+            f"stages { {k: v['mean'] for k, v in bo['report']['stages_ms'].items()} }")
+        if not n_reloc or first_ok is None or first_ok > 53 or lost_after \
+                or not bo["ate_post_recovery"] < 0.02:
+            fail(f"stereo blackout, seed {seed}, misses its bars")
+        if not (bo["inside"]["reloc"].get("fused_best2", 0) > 0
+                and bo["inside"]["reloc"].get("fused_projection_best2", 0)
+                > 0):
+            fail(f"relocalization did not launch B3 and B4: "
+                 f"{bo['inside']['reloc']}")
+        ok, waits = host_waits(torch, lambda: try_relocalize(
+            system, system.loop_closer, bo["last_frame"]))
+        log(f"{tag} host waits of one relocalization (the recovery frame "
+            f"again, {'recovered' if ok else 'not recovered'}): {waits}")
 
-    # 10. stereo loop at full width: loop closing and global BA
-    cuda_build.reset_launches()
-    lp = run_place_recognition(torch, dev, "stereo_loop")
-    launches_loop = dict(cuda_build.LAUNCHES)
-    system, states = lp["system"], lp["states"]
-    lc = system.loop_closer
-    rep = lp["report"]
-    first = lp["closures"][0] if lp["closures"] else None
-    log(f"[10 stereo loop] {lp['n']} frames 752x480, 1200 features, 8 levels: "
-        f"LOST {states.count('LOST')}, {lc.n_loops_closed} loops closed "
-        f"(first: keyframe {first[0] if first else None} to "
-        f"{first[1] if first else None}), {lc.total_fuse_count} points fused; "
-        f"keyframe ATE before / after the first closure "
-        f"{first[2] if first else float('nan'):.5f} / "
-        f"{first[3] if first else float('nan'):.5f} m, without / with the "
-        f"final GBA {lp['ate_no_gba']:.5f} / {lp['ate_gba']:.5f} m; "
-        f"{system.map.n_keyframes()} keyframes, {system.map.n_landmarks()} "
-        f"landmarks; launches {launches_loop}, inside process_keyframe "
-        f"{lp['inside']['loop']} ({lp['run_s']:.1f} s)")
-    log("[10 stereo loop] ms (count, mean, total): " + ", ".join(
-        f"{k} {stage_ms(rep, k)}" for k in (
-            "loop_closing", "gba", "final_gba", "local_mapping", "track",
-            "frame")))
-    if states.count("LOST") or not lc.n_loops_closed \
-            or not lc.total_fuse_count > 0 or not lp["ate_gba"] < 0.02:
-        fail("stereo loop misses its bars")
-    if not (lp["inside"]["loop"].get("fused_best2", 0) > 0
-            and lp["inside"]["loop"].get("fused_projection_best2", 0) > 0):
-        fail(f"loop closing did not launch B3 and B4: {lp['inside']['loop']}")
-    closed, waits = host_waits(torch, lambda: replay_closure(lc, lp["replay"]))
-    log(f"[10 stereo loop] host waits of one closure (keyframe "
-        f"{lp['replay']['k']} to {lp['replay']['c']} replayed on a copy of "
-        f"the map before it, {'closed' if closed else 'not closed'}): "
-        f"{waits}")
-    if not closed:
-        fail("the replayed closure did not close")
+    # 10. stereo loop at full width: loop closing and global BA, at each
+    # noise seed
+    for seed in PLACE_SEEDS:
+        tag = f"[10 stereo loop, seed {seed}]"
+        cuda_build.reset_launches()
+        lp = run_place_recognition(torch, dev, "stereo_loop", seed)
+        launches_place["stereo_loop", seed] = dict(cuda_build.LAUNCHES)
+        system, states = lp["system"], lp["states"]
+        lc = system.loop_closer
+        rep = lp["report"]
+        first = lp["closures"][0] if lp["closures"] else None
+        log(f"{tag} {lp['n']} frames 752x480, 1200 features, 8 levels: "
+            f"LOST {states.count('LOST')}, {lc.n_loops_closed} loops closed "
+            f"(first: keyframe {first[0] if first else None} to "
+            f"{first[1] if first else None}), {lc.total_fuse_count} points "
+            f"fused; keyframe ATE before / after the first closure "
+            f"{first[2] if first else float('nan'):.5f} / "
+            f"{first[3] if first else float('nan'):.5f} m, without / with "
+            f"the final GBA {lp['ate_no_gba']:.5f} / {lp['ate_gba']:.5f} m; "
+            f"{system.map.n_keyframes()} keyframes, "
+            f"{system.map.n_landmarks()} landmarks; launches "
+            f"{launches_place['stereo_loop', seed]}, inside "
+            f"process_keyframe {lp['inside']['loop']} ({lp['run_s']:.1f} s)")
+        lcm = loop_closing_ms(lp)
+        log(f"{tag} ms: loop closing {lcm['per_kf']:.2f} a keyframe over "
+            f"{lcm['n_kf']} ({lcm['rest_per_kf']:.2f} around verification, "
+            f"{lcm['verify_calls']} verifications in {lcm['verify_ms']:.2f}; "
+            f"the closing keyframe {lcm['closing_kf']}; the closure hook's "
+            f"{1e3 * sum(lp['hook_s']):.2f} taken out); (count, mean, total) "
+            + ", ".join(f"{k} {stage_ms(rep, k)}" for k in (
+                "loop_closing", "gba", "final_gba", "local_mapping", "track",
+                "frame")))
+        if states.count("LOST") or not lc.n_loops_closed \
+                or not lc.total_fuse_count > 0 or not lp["ate_gba"] < 0.02:
+            fail(f"stereo loop, seed {seed}, misses its bars")
+        if not (lp["inside"]["loop"].get("fused_best2", 0) > 0
+                and lp["inside"]["loop"].get("fused_projection_best2", 0)
+                > 0):
+            fail(f"loop closing did not launch B3 and B4: "
+                 f"{lp['inside']['loop']}")
+        closed, waits = host_waits(
+            torch, lambda: replay_closure(lc, lp["replay"]))
+        log(f"{tag} host waits of one closure (keyframe "
+            f"{lp['replay']['k']} to {lp['replay']['c']} replayed on a copy "
+            f"of the map before it, {'closed' if closed else 'not closed'}):"
+            f" {waits}")
+        if not closed:
+            fail("the replayed closure did not close")
 
     meta = {
         "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99"),
@@ -1226,9 +1281,10 @@ def main():
         r = rows[k]
         by_path = {"stereo_full_width": launches[k],
                    "rgbd_full_width": launches_rgbd[k],
-                   "mono_known": launches_mono[k],
-                   "stereo_blackout": launches_bo[k],
-                   "stereo_loop": launches_loop[k]}
+                   "mono_known": launches_mono[k]}
+        for (path, seed), counts in launches_place.items():
+            by_path[path if seed == PLACE_SEEDS[-1]
+                    else f"{path}_seed{seed}"] = counts[k]
         kernels.append({
             "name": k, "route": "cuda",
             "source": f"vieo_slam_tpu_torch/csrc/{src}",

@@ -102,7 +102,8 @@ def main():
     ap.add_argument("--features", type=int, default=1200)
     ap.add_argument("--levels", type=int, default=8)
     ap.add_argument("--rows", default="stereo_blackout,stereo_loop")
-    ap.add_argument("--seeds", default=str(chip_smoke.PLACE_SEED),
+    ap.add_argument("--seeds", default=",".join(
+                        str(x) for x in chip_smoke.PLACE_SEEDS),
                     help="noise seeds, comma-separated (the JAX package's "
                          "evaluate_ntimes.py runs 11, 18, 25)")
     args = ap.parse_args()
@@ -118,8 +119,8 @@ def main():
                       for x in args.seeds.split(",")):
         relocs.clear()
         out = chip_smoke.run_place_recognition(
-            torch, dev, row, width=args.width, n_features=args.features,
-            n_levels=args.levels, seed=seed)
+            torch, dev, row, seed, width=args.width,
+            n_features=args.features, n_levels=args.levels)
         system, states = out["system"], out["states"]
         ts = out["ts"]
         # the ground truth of the row, as run_place_recognition made it

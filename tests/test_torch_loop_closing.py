@@ -9,12 +9,20 @@ after its closure (converted for the port): the two closures leave maps
 1e-4 apart, which 20 f32 BA iterations in the map's flat directions
 would carry into the comparison of the BA itself.
 
+Global BA's asynchronous hooks are held against the JAX package's too: an
+abort event set before the solve or between its chunks discards the
+result, and the write-back re-anchors a keyframe created while the solve
+ran and hands each correction sink the newest keyframe's old and new
+pose.
+
 Checks: accepted or not identically; S_ck and the corrected keyframe
 poses within 1e-4; equal SearchAndFuse counts; landmark ids and positions
 within 1e-4 after the correction; GBA poses and the landmarks with a
 stereo observation within the local-BA tolerances of
 tests/test_torch_solvers.py (1e-4), mono-only landmarks in pixels.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +37,7 @@ from vieo_slam_tpu.backend.loop_closing import (
 from vieo_slam_tpu.cameras import models as jcm
 from vieo_slam_tpu.frontend.frame import make_frame_from_features
 from vieo_slam_tpu.frontend.tracking import TrackerConfig as JTrackerConfig
+from vieo_slam_tpu.map.map_state import MapState as JMapState
 from vieo_slam_tpu.sim import world as jworld
 from vieo_slam_tpu.system import System as JSystem
 from vieo_slam_tpu.system import SystemConfig as JSystemConfig
@@ -164,3 +173,105 @@ def test_global_ba(closed):
     h = has[~stereo]
     np.testing.assert_allclose(pixels(pm)[h], pixels(jm)[h], atol=0.1)
     assert pm.big_change_idx == jm.big_change_idx >= 2
+
+
+def clone_jax_map(jm):
+    """An independent copy of a JAX package map, with its own lock."""
+    m = JMapState(jm.cfg)
+    for name, value in jm.__dict__.items():
+        if name not in ("lock", "_covis_cache"):
+            setattr(m, name, copy.deepcopy(value))
+    return m
+
+
+class AbortAfter:
+    """A stand-in for threading.Event that reads as set from its n-th
+    is_set() on (n = 0: set from the start)."""
+
+    def __init__(self, n):
+        self.n, self.calls = n, 0
+
+    def is_set(self):
+        self.calls += 1
+        return self.calls > self.n
+
+
+class Sink:
+    def __init__(self):
+        self.pushed = []
+
+    def push_correction(self, *poses):
+        self.pushed.append(tuple(np.array(p) for p in poses))
+
+
+@pytest.mark.parametrize("after", [0, 1], ids=["before_the_solve",
+                                               "between_chunks"])
+def test_global_ba_abort(closed, after):
+    """An aborted GBA returns False and writes no pose or point back, in
+    the port as in the JAX package (the moving-landmark cull before the
+    solve stands in both)."""
+    js = closed["js"]
+    jm = clone_jax_map(js.map)
+    pm = convert.map_from_jax(js.map)
+    before = (pm.kf_Rcw.copy(), pm.kf_tcw.copy(), pm.lm_pw.copy())
+    ja, pa = AbortAfter(after), AbortAfter(after)
+    ok_j = type(js.mapper)(js.mapper.cam, BF, jm).run_global_ba(abort=ja)
+    ok_p = LocalMapper(closed["plc"].cam, BF, pm, device="cpu") \
+        .run_global_ba(abort=pa)
+    assert (ok_j, ok_p) == (False, False)
+    assert ja.calls == pa.calls == after + 1
+    np.testing.assert_array_equal(pm.lm_valid, jm.lm_valid)
+    np.testing.assert_array_equal(pm.kf_Rcw, before[0])
+    np.testing.assert_array_equal(pm.kf_tcw, before[1])
+    np.testing.assert_array_equal(pm.lm_pw[pm.lm_valid],
+                                  before[2][pm.lm_valid])
+
+
+def test_gba_write_back_reanchors_and_notifies(closed):
+    """The write-back of a solve that did not see the newest keyframe (as
+    when it was created during the solve): the solved keyframes and
+    landmarks take the result, the newest keyframe and the landmarks
+    outside the solved set follow their anchors, and every sink gets the
+    newest keyframe's old and new pose -- equal to the JAX package's."""
+    js = closed["js"]
+    jm = clone_jax_map(js.map)
+    pm = convert.map_from_jax(js.map)
+    kfs = pm.keyframe_ids()
+    solved, newest = kfs[:-1], int(kfs[-1])
+    lm_ids = pm.landmarks_in_keyframes(solved[:1])
+    lm_ids = lm_ids[pm.lm_valid[lm_ids]]
+    kf_order = np.concatenate([solved[1:], solved[:1]])
+    # The result: the map moved by a small rigid motion of the world.
+    c, s_ = np.cos(0.02), np.sin(0.02)
+    Rd = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
+    td = np.array([0.01, -0.02, 0.005], np.float32)
+    Rcw = (pm.kf_Rcw[kf_order] @ Rd.T).astype(np.float32)
+    tcw = (pm.kf_tcw[kf_order]
+           - np.einsum("kij,j->ki", Rcw, td)).astype(np.float32)
+    pw = (pm.lm_pw[lm_ids] @ Rd.T + td).astype(np.float32)
+    new_before = pm.kf_Rcw[newest].copy(), pm.kf_tcw[newest].copy()
+    sj, sp = Sink(), Sink()
+    args = (kf_order, lm_ids, Rcw, tcw, pw)
+    kw = dict(n_free=len(solved) - 1, snap_next_kf=newest)
+    ok_j = type(js.mapper)(js.mapper.cam, BF, jm)._apply_gba_result(
+        *args, correction_sinks=[sj], **kw)
+    ok_p = LocalMapper(closed["plc"].cam, BF, pm, device="cpu") \
+        ._apply_gba_result(*args, correction_sinks=[sp], **kw)
+    assert ok_j and ok_p
+    # the newest keyframe was re-anchored: it moved with the world
+    np.testing.assert_allclose(pm.kf_Rcw[newest], new_before[0] @ Rd.T,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        pm.kf_tcw[newest], new_before[1] - pm.kf_Rcw[newest] @ td,
+        atol=1e-5)
+    np.testing.assert_allclose(pm.kf_Rcw[kfs], jm.kf_Rcw[kfs], atol=1e-6)
+    np.testing.assert_allclose(pm.kf_tcw[kfs], jm.kf_tcw[kfs], atol=1e-6)
+    np.testing.assert_array_equal(pm.lm_valid, jm.lm_valid)
+    np.testing.assert_allclose(pm.lm_pw[pm.lm_valid], jm.lm_pw[jm.lm_valid],
+                               atol=1e-5)
+    assert len(sp.pushed) == len(sj.pushed) == 1
+    for a, b in zip(sp.pushed[0], sj.pushed[0]):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+    np.testing.assert_allclose(sp.pushed[0][0], new_before[0], atol=0)
+    np.testing.assert_allclose(sp.pushed[0][2], pm.kf_Rcw[newest], atol=0)
+    assert pm.big_change_idx == jm.big_change_idx

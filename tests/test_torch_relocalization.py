@@ -8,7 +8,9 @@ Both must go LOST on the same frame and relocalize on the same frame; the
 recovered poses agree within 1e-3 m and 1e-3 rad (the RANSAC draws
 differ -- a torch.Generator cannot reproduce jax.random -- but the pose is
 decided by the pose optimization on the harvested matches), and the
-tracker's `just_relocalized` is set.
+tracker's `just_relocalized` is set.  The frames tracked after the
+recovery (the first of them without a motion model, as in the JAX
+package) agree to the same tolerance.
 """
 
 import numpy as np
@@ -41,7 +43,7 @@ torch.set_num_threads(1)
 CAM = (400.0, 400.0, 320.0, 240.0, 640, 480)
 BF = 400.0 * 0.2
 N_TRACK = 10          # frames tracked before the kidnap
-KIDNAP = (2, 3)       # the early views the camera is thrown back to
+KIDNAP = (2, 3, 4)    # the early views the camera is thrown back to
 SLAB = 1536           # the tracker's local landmark slab (both systems)
 
 
@@ -124,3 +126,21 @@ def test_relocalize_needs_keypoints(kidnap_runs):
     tf = rows[-1][-1]
     dark = tf._replace(valid=torch.zeros_like(tf.valid))
     assert not try_relocalize(ps, ps.loop_closer, dark)
+
+
+def test_frames_after_recovery(kidnap_runs):
+    """The frames tracked after the recovery land where the JAX package's
+    do, and near the truth."""
+    js, ps, rows, (Rcw, tcw) = kidnap_runs
+    at = next(n for n in range(N_TRACK, len(rows))
+              if rows[n][2].name == "OK")
+    after = rows[at + 1:]
+    assert after
+    for i, sj, st, Rj, tj, Rp, tp, _, _ in after:
+        assert (sj.name, st.name) == ("OK", "OK")
+        assert np.abs(tp - tj).max() < 1e-3
+        assert rot_angle(Rp, Rj) < 1e-3
+        Rg = Rcw[i] @ Rcw[0].T
+        tg = tcw[i] - Rg @ tcw[0]
+        assert np.linalg.norm(tp - tg) < 0.05
+        assert rot_angle(Rp, Rg) < 0.02
