@@ -64,6 +64,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the final GBA, the ms of relocalization, loop closing (split between
      candidate verification and the work around it; the closing keyframe
      alone), GBA and final GBA, and the host waits of one closure.
+ 11. stereo async: phase 5's cell with SystemConfig(async_mapping=True),
+     free-running and in lockstep (the worker's queue joined after every
+     frame).  Bars: 0 LOST, the worker processed every keyframe (map
+     version > keyframes), free-running ATE < 0.02 m, lockstep ATE <= 1.1 x
+     phase 5's + 5e-4 m; B1 and B2 once a frame, B3 and B4 at all.  Prints
+     the track ms (median, p99) with mapping behind it beside phase 5's.
+ 12. stereo_vio: the row of evaluate_ntimes.py at 752x480, 1200 features,
+     8 levels (the blackout world without the blackout, 60 frames) through
+     a VioFrontend fed 200 Hz IMU with the row's biases and noise (IMU seed
+     100), init_min_kfs 10, init_min_span 3 s, a LoopCloser attached.  Bars:
+     VI initialized, |g| within 0.05 of 9.81, bg within 1.2e-2 of the truth,
+     0 LOST, keyframe ATE < 0.02 m, B1-B4 launched, and the fused solve
+     and a frame's preintegration replayed from their CUDA graphs equal to
+     their plain calls on the same inputs.  Prints the init frame, the ms
+     of preintegration, fused solve and whole frame, and the device ops of
+     a fused frame (frame 53 under torch.profiler; its ~90000 events take
+     the profiler ~15 s to sum) against phase 8's.
+ 13. vio_blackout: the same with frames 36-47 black.  Bars: 0 LOST, the
+     black frames ODOMOK, 0 relocalizations, OK from frame 50 on, keyframe
+     ATE after the recovery < 0.02 m.
+ 14. vio_loop: the stereo_loop world, two laps (360 frames) with the IMU.
+     Bars: 0 LOST, the final VI init reached, the PRV window BA run, one
+     loop closed, fused points > 0, keyframe ATE after the final GBA < 0.02
+     m, the window BA's chain blocks replayed from their CUDA graphs equal
+     to their plain calls.  Prints the keyframe ATE around the closure and
+     the ms of the VIO local BA, the init GBA and loop closing.
+ 15. stereo_vio async: phase 12's row over SystemConfig(async_mapping=True),
+     free-running, with the VI init final after 4 s of keyframes, so that
+     the PRV window BA runs on the mapping worker while this thread tracks
+     and times its frames with device-wide syncs; the worker's new graph
+     layouts are captured on this thread (utils/cuda_graph.py).  Bars: 0
+     LOST, final init, the window BA run on the worker only, at least one
+     chain-block graph replayed there, |g| and bg as phase 12,
+     keyframe ATE < 0.02 m, B1-B4 launched, and every graph of the run
+     (fused solve, each preintegration length, each chain-block layout)
+     equal to its plain call on the same inputs.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -75,6 +111,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -112,10 +149,21 @@ LOOP_FRAMES_PER_LAP = 180
 # PERF.md): its closure raises the keyframe ATE and its recovered map
 # keeps an offset.
 PLACE_SEEDS = (0, 11)
+# The IMU of the VIO rows of examples/evaluate_ntimes.py: gyroscope and
+# accelerometer biases (noise 1e-4 and 1e-3, seed `seed + 100`).
+VIO_BG = np.array([0.01, -0.02, 0.015], np.float32)
+VIO_BA = np.array([0.05, 0.03, -0.04], np.float32)
+# Phase 15's final-acceptance span of the VI init (the rows' 15 s needs
+# more frames than the 60 of stereo_vio): past it the PRV window BA runs.
+VIO_ASYNC_FINAL_SPAN = 4.0
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """A line of the report, with the seconds since the script started."""
+    print(f"{time.perf_counter() - _T0:7.1f}s {msg}", flush=True)
 
 
 def fail(msg):
@@ -239,7 +287,7 @@ def scene(n_frames, width, world_cfg=None, omega=0.25):
                           480)
     world = sim.SyntheticWorld(sim.WorldConfig(**(world_cfg or WORLD)))
     ts = np.arange(n_frames) * 0.1
-    Rwc, twc = sim.circle_trajectory(ts, radius=1.0, omega=omega,
+    Rwc, twc, _, _ = sim.circle_trajectory(ts, radius=1.0, omega=omega,
                                      look_outward=True)
     Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
     return cam, cam.fx * BASELINE, world, ts, Rcw, tcw, twc
@@ -581,14 +629,17 @@ def gain_bias(t):
 
 def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
                  slab=4096, profile_from=None, sensor="stereo",
-                 world_cfg=None, omega=0.25, hardened=False):
+                 world_cfg=None, omega=0.25, hardened=False,
+                 async_mapping=False, lockstep=False):
     """build_*_frame of `sensor` (stereo, rgbd or mono) +
     System.track_frame over the sequence; returns the system, the states,
     per-frame stage times, the ATE (scale-aligned over the tracked frames
     for mono) and the inputs.  `hardened` renders with photometric noise
-    and brightness drift.  With `profile_from`, the frames from that index
-    on run under torch.profiler, which is returned last (with its wall
-    seconds)."""
+    and brightness drift.  With `async_mapping` the mapping worker runs
+    behind tracking (its queue joined after each frame, outside the
+    times, with `lockstep`), and the track time is the whole track_frame
+    call.  With `profile_from`, the frames from that index on run under
+    torch.profiler, which is returned last (with its wall seconds)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from vieo_slam_tpu_torch.frontend import frame as fr
@@ -632,8 +683,10 @@ def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
     metrics.reset()
     mode = {"stereo": SensorMode.STEREO, "rgbd": SensorMode.RGBD,
             "mono": SensorMode.MONOCULAR}[sensor]
-    system = System(cam, bf, SystemConfig(sensor=mode, tracker=TrackerConfig(
-        use_predicted_scale=True, local_landmark_cap=slab)), device=dev)
+    system = System(cam, bf, SystemConfig(
+        sensor=mode, tracker=TrackerConfig(use_predicted_scale=True,
+                                           local_landmark_cap=slab),
+        async_mapping=async_mapping), device=dev)
     states, times = [], []
     prof, prof_s = None, 0.0
     for i in range(n_frames):
@@ -652,12 +705,16 @@ def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
             states.append(system.track_frame(frame))
             torch.cuda.synchronize()
         t2 = time.perf_counter()
-        lm = metrics.stages["local_mapping"].total - lm0
+        lm = 0.0 if async_mapping \
+            else metrics.stages["local_mapping"].total - lm0
         times.append((t1 - t0, t2 - t1 - lm, lm))
+        if lockstep:
+            system._kf_queue.join()
         if prof is not None:
             prof_s += t2 - t0
     if prof is not None:
         prof.__exit__(None, None, None)
+    system.wait_idle()
     traj = system.tracker.trajectory
     if sensor == "mono":        # no pose before the two-view initialization
         traj = [x for x in traj if x[3] == "OK"]
@@ -751,16 +808,26 @@ def host_waits(torch, fn):
                               "cudaMemcpyAsync", "cudaEventSynchronize")}
 
 
-def run_place_recognition(torch, dev, row, seed, width=752,
-                          n_features=1200, n_levels=8):
-    """The stereo_blackout or stereo_loop row of examples/evaluate_ntimes.py
-    through build_stereo_frame + System.track_frame with a LoopCloser
-    attached, images rendered frame by frame.  Returns a dict of the
-    system, the states, the ATEs, the launches counted and the host
-    seconds spent inside the relocalization calls, inside
-    loop_closer.process_keyframe and inside its candidate verification
-    (_try_close), the inputs of the last recovery frame, and the state
-    before the first closure."""
+def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
+            profile=None, async_mapping=None, vio_cfg=None):
+    """One row of examples/evaluate_ntimes.py through build_stereo_frame +
+    System.track_frame with a LoopCloser attached, images rendered frame
+    by frame: stereo_blackout, stereo_loop, stereo_async (the 60-frame
+    circle with the async mapping worker), stereo_vio, vio_blackout or
+    vio_loop (the same through a VioFrontend fed the row's IMU stream).
+    Returns a dict of the system (and the front end), the states, the
+    ATEs, the launches counted and the host seconds spent inside the
+    relocalization calls, inside loop_closer.process_keyframe and inside
+    its candidate verification (_try_close), the inputs of the last
+    recovery frame, the state before the first closure, and the frame
+    where the VI initialization took.  `profile` = (first, last) runs
+    those frames under torch.profiler, returned with their wall
+    seconds.  `async_mapping` (default: the stereo_async row only) and
+    `vio_cfg` (VioConfig fields over the rows') vary the row; the threads
+    that ran the VIO window BA are returned."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     from vieo_slam_tpu_torch.backend.loop_closing import (
         LoopCloser, LoopClosingConfig)
     from vieo_slam_tpu_torch.cameras import models as cm
@@ -772,8 +839,10 @@ def run_place_recognition(torch, dev, row, seed, width=752,
     from vieo_slam_tpu_torch.sim import world as sim
     from vieo_slam_tpu_torch.system import System, SystemConfig
     from vieo_slam_tpu_torch.utils.metrics import metrics
+    from vieo_slam_tpu_torch.vio.frontend import VioConfig, VioFrontend
 
-    loop = row == "stereo_loop"
+    loop = row.endswith("_loop")
+    vio = row in ("stereo_vio", "vio_blackout", "vio_loop")
     n = 2 * LOOP_FRAMES_PER_LAP if loop else 60
     s = width / 640.0
     cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0, width,
@@ -782,32 +851,52 @@ def run_place_recognition(torch, dev, row, seed, width=752,
     ts = np.arange(n) * 0.1
     if loop:
         world = sim.SyntheticWorld(sim.WorldConfig(**LOOP_WORLD))
-        Rwc, twc = sim.circle_trajectory(
+        Rwc, twc, v_w, a_w = sim.circle_trajectory(
             ts, radius=LOOP_RADIUS,
             omega=2 * np.pi / (LOOP_FRAMES_PER_LAP * 0.1), look_outward=True)
-        bo = (-1, -1)
     else:
         world = sim.SyntheticWorld(sim.WorldConfig(**BLACKOUT_WORLD))
-        Rwc, twc = sim.circle_trajectory(ts, radius=1.0, omega=MONO_OMEGA,
-                                         look_outward=True)
-        bo = (3 * n // 5, 3 * n // 5 + 12)
+        Rwc, twc, v_w, a_w = sim.circle_trajectory(
+            ts, radius=1.0, omega=MONO_OMEGA, look_outward=True)
+    bo = (3 * n // 5, 3 * n // 5 + 12) if row.endswith("_blackout") \
+        else (-1, -1)
     Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
     cfg = orb.OrbConfig(n_features=n_features, n_levels=n_levels)
     rng = np.random.RandomState(seed)       # the photometric noise
 
     metrics.reset()
-    system = System(cam, bf, SystemConfig(tracker=TrackerConfig(
-        use_predicted_scale=True)), device=dev)
+    if async_mapping is None:
+        async_mapping = row == "stereo_async"
+    system = System(cam, bf, SystemConfig(
+        tracker=TrackerConfig(use_predicted_scale=True),
+        async_mapping=async_mapping), device=dev)
     system.loop_closer = LoopCloser(
         cam, bf, system.map,
         LoopClosingConfig(min_kf_gap=30 if loop else 8, fix_scale=True),
         device=dev)
+    front, imu = system, None
+    if vio:
+        imu = sim.make_imu_samples(ts, Rwc.astype(np.float64), v_w, a_w,
+                                   rate_hz=200.0, bg=VIO_BG, ba=VIO_BA,
+                                   noise_g=1e-4, noise_a=1e-3,
+                                   seed=seed + 100)
+        front = VioFrontend(system, cfg=VioConfig(**{
+            "init_min_kfs": 10, "init_min_span": 3.0, **(vio_cfg or {})}))
+    window_ba_threads = []
+    if vio:
+        step = front._backend_worker_step
+
+        def worker_step(k):
+            window_ba_threads.append(threading.current_thread().name)
+            return step(k)
+
+        front._backend_worker_step = worker_step
 
     def kf_ate(t_min=-1.0):
         m = system.map
         kfs = m.keyframe_ids()
         kfs = kfs[m.kf_timestamp[kfs] > t_min]
-        if len(kfs) < 3:
+        if len(kfs) < 2:        # as evaluate_ntimes.py
             return float("nan")
         p = np.stack([-(m.kf_Rcw[k].T @ m.kf_tcw[k]) for k in kfs])
         return ate(m.kf_timestamp[kfs], p, ts, twc)["rmse"]
@@ -858,42 +947,75 @@ def run_place_recognition(torch, dev, row, seed, width=752,
         hook_s.append(dt + time.perf_counter() - t0)
 
     lc._correct_loop = correct_hooked
-    states, recovered_at, last_frame = [], None, None
-    t0 = time.perf_counter()
+    states, frame_s, recovered_at, last_frame = [], [], None, None
+    init_at, i_imu = None, 0
+    prof, prof_s, profiled = None, 0.0, None
+    t_run = time.perf_counter()
     try:
         for i in range(n):
             t = float(ts[i])
+            if imu is not None:
+                while i_imu < len(imu[0]) and imu[0][i_imu] <= t:
+                    front.track_odom(imu[0][i_imu], imu[1][i_imu],
+                                     imu[2][i_imu])
+                    i_imu += 1
             g, b = gain_bias(t)
             left, right = world.render_stereo(
                 cam, Rcw[i], tcw[i], BASELINE, t=t, noise_sigma=NOISE_SIGMA,
                 gain=g, bias=b, rng=rng)
             if bo[0] <= i < bo[1]:
                 left, right = np.zeros_like(left), np.zeros_like(right)
+            if profile is not None and i == profile[0]:
+                prof = torch_profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                prof.__enter__()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             frame = fr.build_stereo_frame(
                 torch.from_numpy(left).to(dev),
                 torch.from_numpy(right).to(dev), cfg, bf=bf, min_depth=0.3,
                 max_depth=15.0, timestamp=t, device=dev)
             n_reloc = metrics.counters.get("reloc_success", 0)
-            states.append(system.track_frame(frame).name)
+            states.append(front.track_frame(frame).name)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof_s += frame_s[-1]
+                if i == profile[1] - 1:
+                    prof.__exit__(None, None, None)
+                    prof, profiled = None, prof
+            if vio and front.inited and init_at is None:
+                init_at = i
             if metrics.counters.get("reloc_success", 0) > n_reloc:
                 if recovered_at is None:
                     recovered_at = i
                 last_frame = frame
+        system.wait_idle()
     finally:
         relocalization.try_relocalize = reloc_orig
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
     pre_gba = kf_ate()
     system.final_global_ba()
-    out = dict(system=system, states=states, n=n, ts=ts, bo=bo,
-               recovered_at=recovered_at, last_frame=last_frame,
-               inside=inside, spent=spent, hook_s=hook_s,
-               closures=closures, replay=replay, run_s=run_s,
+    traj = system.tracker.trajectory
+    poses = np.asarray([-(R.T @ t) for _, R, t, _ in traj])
+    out = dict(system=system, front=front, states=states, n=n, ts=ts,
+               twc=twc, bo=bo, recovered_at=recovered_at,
+               last_frame=last_frame, inside=inside, spent=spent,
+               hook_s=hook_s, closures=closures, replay=replay, run_s=run_s,
+               frame_s=frame_s, init_at=init_at,
+               window_ba_threads=window_ba_threads,
+               ate_track=ate(np.asarray([x[0] for x in traj]), poses, ts,
+                             twc)["rmse"],
                ate_no_gba=pre_gba, ate_gba=kf_ate(),
-               ate_post_recovery=kf_ate(float(ts[bo[1]])) if bo[1] > 0
-               else None,
-               report=metrics.report())
+               # The keyframes from the first lit frame on: evaluate_ntimes.py
+               # keeps f32 timestamps (x64 off), so its "> ts[end]" takes
+               # that frame's keyframe in (f32(4.8) > 4.8).
+               ate_post_recovery=kf_ate(float(ts[bo[1]]) - 1e-6)
+               if bo[1] > 0 else None, report=metrics.report(),
+               profile=None if profiled is None else
+               (profiled, prof_s, profile[1] - profile[0]))
+    system.shutdown()
     return out
 
 
@@ -914,9 +1036,51 @@ def replay_closure(lc, replay):
     return lc2._try_close(replay["k"], replay["c"])
 
 
+def graph_error(torch, g):
+    """Largest |difference| between a utils.cuda_graph.CapturedCall's last
+    replay and the plain call on the same inputs (the graph's own input
+    and output tensors), and the plain call's ms."""
+    from torch.utils._pytree import tree_flatten
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = g.plain()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        tree_flatten(plain)[0], tree_flatten(g.outputs)[0]))
+    return err, ms
+
+
+def chain_graphs(call):
+    """(name, CapturedCall) of each chain-block graph of a window BA's
+    utils.cuda_graph.GraphedCall."""
+    from torch.utils._pytree import tree_unflatten
+
+    out = []
+    for g in call.graphs.values():
+        args, kwargs = tree_unflatten(g.inputs, g.spec)
+        out.append((f"the window BA's chain blocks, {args[0].p.shape[0]} "
+                    f"chains{'' if kwargs['jacobian'] else ', cost only'}, "
+                    f"captured on {g.thread}, replays {dict(g.replays)}",
+                    g))
+    return out
+
+
+def check_graphs(torch, tag, graphs):
+    """Each named CapturedCall's last replay against the plain call."""
+    for name, g in graphs:
+        err, ms = graph_error(torch, g)
+        log(f"{tag} {name} replayed from its CUDA graph against the plain "
+            f"call on the same inputs: max |diff| {err:.3g}; the plain call "
+            f"{ms:.2f} ms")
+        if not err <= 1e-5:
+            fail(f"{tag} the graphed {name} differs from the plain call")
+
+
 def loop_closing_ms(out):
     """Host ms of loop_closer.process_keyframe with the seconds of
-    run_place_recognition's closure hook taken out: the mean over all
+    run_row's closure hook taken out: the mean over all
     keyframes, the keyframe that closed the first loop, and the split
     between candidate verification (_try_close: calls, ms in all) and the
     per-keyframe work around it (the purge, the BoW descent, the database
@@ -941,9 +1105,11 @@ def stage_ms(report, name):
     return (st["count"], st["mean"], st["total"]) if st else (0, 0.0, 0.0)
 
 
-def summarize_profile(prof, wall_s, n_frames):
+def summarize_profile(prof, wall_s, n_frames, tag="[8 profile]", top=10):
     """Device busy share, kernel launches and host waits per frame, the
-    device time under each stage label, and the top device entries."""
+    device time under each stage label, and the top device entries;
+    returns the device ops and busy ms a frame (None if the profiler saw
+    no device time)."""
     events = prof.key_averages()
     labels = ("frame_build", "track_frame")
 
@@ -958,9 +1124,9 @@ def summarize_profile(prof, wall_s, n_frames):
               and "cuda" in str(getattr(e, "device_type", "")).lower()]
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     if not on_dev:
-        log("[8 profile] device time not measured: the profiler saw no CUDA "
+        log(f"{tag} device time not measured: the profiler saw no CUDA "
             "events")
-        return
+        return None
     launches = sum(e.count for e in on_dev)
     ours_ms = sum(dev_us(e) for e in on_dev if any(
         k in e.key for k in ("fast_nms_blend_kernel", "gather_patches_kernel",
@@ -969,7 +1135,7 @@ def summarize_profile(prof, wall_s, n_frames):
              if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                           "cudaMemcpyAsync", "cudaEventSynchronize")}
     wall_ms = 1e3 * wall_s / n_frames
-    log(f"[8 profile] {n_frames} full-width frames under torch.profiler: "
+    log(f"{tag} {n_frames} full-width frames under torch.profiler: "
         f"wall {wall_ms:.2f} ms/frame, device busy {busy_ms / n_frames:.2f} "
         f"ms/frame, idle share {1 - busy_ms / (wall_ms * n_frames):.4f}, "
         f"{launches / n_frames:.0f} device ops/frame, host waits/frame "
@@ -979,17 +1145,19 @@ def summarize_profile(prof, wall_s, n_frames):
     for label in labels:
         e = next((e for e in events if e.key == label), None)
         if e is not None:
-            log(f"[8 profile] {label}: host {e.cpu_time_total / 1e3 / n_frames:.2f}"
+            log(f"{tag} {label}: host {e.cpu_time_total / 1e3 / n_frames:.2f}"
                 f" ms/frame, device {dev_us(e, True) / 1e3 / n_frames:.2f} "
                 f"ms/frame")
-    for e in sorted(on_dev, key=dev_us, reverse=True)[:10]:
-        log(f"[8 profile]   device {dev_us(e) / 1e3 / n_frames:8.3f} ms/frame "
+    for e in sorted(on_dev, key=dev_us, reverse=True)[:top]:
+        log(f"{tag}   device {dev_us(e) / 1e3 / n_frames:8.3f} ms/frame "
             f"{e.count / n_frames:7.1f}x  {e.key[:90]}")
     on_host = [e for e in events if e.key not in labels and e not in on_dev]
     for e in sorted(on_host, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:10]:
-        log(f"[8 profile]   host {e.self_cpu_time_total / 1e3 / n_frames:8.3f}"
+                    reverse=True)[:top]:
+        log(f"{tag}   host {e.self_cpu_time_total / 1e3 / n_frames:8.3f}"
             f" ms/frame {e.count / n_frames:7.1f}x  {e.key[:90]}")
+    return dict(ops=launches / n_frames, busy_ms=busy_ms / n_frames,
+                wall_ms=wall_ms)
 
 
 def main():
@@ -1095,6 +1263,8 @@ def main():
         f"{np.median(t.sum(1)):.2f}")
     if lost:
         fail(f"full-width run lost track in {lost} frames")
+    ate5, track5_ms, frame5_ms = (res["rmse"], np.median(t[:, 1]),
+                                  np.median(t.sum(1)))
     check_counts("full width", launches,
                  {"fast_nms_blend": n_frames, "gather_patches": n_frames,
                   "tail_fused": 0},
@@ -1162,7 +1332,7 @@ def main():
     n_prof, prof_from = 14, 8
     *_, (prof, prof_s) = run_sequence(torch, dev, 752, 1200, 8, n_prof,
                                       profile_from=prof_from)
-    summarize_profile(prof, prof_s, n_prof - prof_from)
+    prof8 = summarize_profile(prof, prof_s, n_prof - prof_from)
 
     # 9. stereo blackout at full width: relocalization, at each noise seed
     from vieo_slam_tpu_torch.frontend.relocalization import try_relocalize
@@ -1171,7 +1341,7 @@ def main():
     for seed in PLACE_SEEDS:
         tag = f"[9 stereo blackout, seed {seed}]"
         cuda_build.reset_launches()
-        bo = run_place_recognition(torch, dev, "stereo_blackout", seed)
+        bo = run_row(torch, dev, "stereo_blackout", seed)
         launches_place["stereo_blackout", seed] = dict(cuda_build.LAUNCHES)
         system, states = bo["system"], bo["states"]
         rec = bo["recovered_at"]
@@ -1219,7 +1389,7 @@ def main():
     for seed in PLACE_SEEDS:
         tag = f"[10 stereo loop, seed {seed}]"
         cuda_build.reset_launches()
-        lp = run_place_recognition(torch, dev, "stereo_loop", seed)
+        lp = run_row(torch, dev, "stereo_loop", seed)
         launches_place["stereo_loop", seed] = dict(cuda_build.LAUNCHES)
         system, states = lp["system"], lp["states"]
         lc = system.loop_closer
@@ -1263,6 +1433,169 @@ def main():
         if not closed:
             fail("the replayed closure did not close")
 
+    # 11. stereo async: phase 5's cell with the mapping worker behind
+    # tracking, free-running and in lockstep
+    t0 = time.perf_counter()
+    async_runs = {}
+    for mode in ("free", "lockstep"):
+        cuda_build.reset_launches()
+        system, states, times, res, *_ = run_sequence(
+            torch, dev, 752, 1200, 8, n_frames, async_mapping=True,
+            lockstep=mode == "lockstep")
+        launches_place["stereo_async_" + mode, None] = dict(
+            cuda_build.LAUNCHES)
+        tr = 1e3 * np.asarray(times[warm:])[:, 1]
+        async_runs[mode] = dict(
+            lost=sum(s.name == "LOST" for s in states), ate=res["rmse"],
+            version=system.map.version, n_kf=system.map.n_keyframes(),
+            track_med=np.median(tr), track_p99=np.percentile(tr, 99))
+        system.shutdown()
+    fr_, lk = async_runs["free"], async_runs["lockstep"]
+    log(f"[11 stereo async] {n_frames} frames 752x480, 1200 features, 8 "
+        f"levels, mapping on the worker: free-running LOST {fr_['lost']}, "
+        f"ATE RMSE {fr_['ate']:.5f} m, map version {fr_['version']} over "
+        f"{fr_['n_kf']} keyframes; lockstep LOST {lk['lost']}, ATE RMSE "
+        f"{lk['ate']:.5f} m (phase 5, sync: {ate5:.5f} m); track ms with "
+        f"mapping behind it after {warm} warm-up frames: free median "
+        f"{fr_['track_med']:.2f}, p99 {fr_['track_p99']:.2f}; lockstep "
+        f"median {lk['track_med']:.2f}, p99 {lk['track_p99']:.2f}; phase 5's "
+        f"sync track {track5_ms:.2f} and whole frame {frame5_ms:.2f}; "
+        f"launches {launches_place['stereo_async_free', None]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if fr_["lost"] or lk["lost"] or not fr_["version"] > fr_["n_kf"] \
+            or not fr_["ate"] < 0.02 or not lk["ate"] <= 1.1 * ate5 + 5e-4:
+        fail("stereo async misses its bars")
+    for mode in ("free", "lockstep"):
+        check_counts(f"stereo async {mode}",
+                     launches_place["stereo_async_" + mode, None],
+                     {"fast_nms_blend": n_frames, "gather_patches": n_frames,
+                      "tail_fused": 0},
+                     ("fused_best2", "fused_projection_best2"))
+
+    # 12-14. stereo VIO: the stereo_vio, vio_blackout and vio_loop rows
+    vio_path = ("fast_nms_blend", "gather_patches", "fused_best2",
+                "fused_projection_best2")
+    vio_ate = {}
+    for phase, row in ((12, "stereo_vio"), (13, "vio_blackout"),
+                       (14, "vio_loop")):
+        tag = f"[{phase} {row}, seed 0]"
+        cuda_build.reset_launches()
+        out = run_row(torch, dev, row, 0,
+                      profile=(53, 54) if row == "stereo_vio" else None)
+        launches_place[row, None] = dict(cuda_build.LAUNCHES)
+        system, vio, states = out["system"], out["front"], out["states"]
+        rep_ = out["report"]
+        after = 1e3 * np.asarray(out["frame_s"][(out["init_at"] or 0) + 1:])
+        n_odomok = states.count("ODOMOK")
+        n_reloc = rep_["counters"].get("reloc_success", 0)
+        log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels: "
+            f"VI init at frame {out['init_at']} (final: {vio.final_inited}), "
+            f"|g| {np.linalg.norm(vio.gw):.4f}, bg {vio.bg} (true "
+            f"{VIO_BG}), ba {vio.ba} (true {VIO_BA}); LOST "
+            f"{states.count('LOST')}, ODOMOK {n_odomok}, relocalizations "
+            f"{n_reloc}; ATE RMSE of the tracked frames "
+            f"{out['ate_track']:.5f} m, keyframe ATE without / with the "
+            f"final GBA {out['ate_no_gba']:.5f} / {out['ate_gba']:.5f} m; "
+            f"{system.map.n_keyframes()} keyframes, "
+            f"{system.map.n_landmarks()} landmarks; launches "
+            f"{launches_place[row, None]} ({out['run_s']:.1f} s)")
+        log(f"{tag} ms: whole frame after the init median "
+            f"{np.median(after) if after.size else float('nan'):.2f}; "
+            f"(count, mean, total) " + ", ".join(
+                f"{k} {stage_ms(rep_, k)}" for k in (
+                    "vio.preintegrate", "vio.fuse", "vio.init",
+                    "vio.init_gba", "vio.local_ba", "track", "local_mapping",
+                    "loop_closing", "gba", "final_gba", "frame")))
+        check_counts(row, launches_place[row, None], {"tail_fused": 0},
+                     vio_path)
+        lost = states.count("LOST")
+        vio_ate[row] = out["ate_no_gba"]
+        if row == "stereo_vio":
+            check_graphs(torch, tag, [
+                ("the fused solve", g) for g in vio._fused.graphs.values()]
+                + [(f"the preintegration of {g.inputs[0].shape[0]} samples",
+                    g) for g in list(vio._preint.graphs.values())[:1]])
+            if out["profile"] is not None:
+                p12 = summarize_profile(*out["profile"], tag=tag, top=5)
+                if p12 is not None and prof8 is not None:
+                    log(f"{tag} device ops a fused frame {p12['ops']:.0f} "
+                        f"against phase 8's {prof8['ops']:.0f} (stereo, no "
+                        f"IMU); device busy {p12['busy_ms']:.2f} against "
+                        f"{prof8['busy_ms']:.2f} ms a frame")
+            if not vio.inited or abs(np.linalg.norm(vio.gw) - 9.81) > 0.05 \
+                    or np.abs(vio.bg - VIO_BG).max() > 1.2e-2 or lost \
+                    or not out["ate_no_gba"] < 0.02:
+                fail("stereo_vio misses its bars")
+        elif row == "vio_blackout":
+            b0, b1 = out["bo"]
+            black = states[b0:b1]
+            ok_from = all(x == "OK" for x in states[b1 + 2:])
+            log(f"{tag} frames {b0}-{b1 - 1} black: {black.count('ODOMOK')} "
+                f"of them ODOMOK, OK from frame {b1 + 2} on: {ok_from}; "
+                f"keyframe ATE after the recovery "
+                f"{out['ate_post_recovery']:.5f} m")
+            if lost or black.count("ODOMOK") != len(black) or n_reloc \
+                    or not ok_from or not out["ate_post_recovery"] < 0.02:
+                fail("vio_blackout misses its bars")
+        else:
+            lc = system.loop_closer
+            first = out["closures"][0] if out["closures"] else None
+            n_lba = stage_ms(rep_, "vio.local_ba")[0]
+            lcm = loop_closing_ms(out)
+            log(f"{tag} {lc.n_loops_closed} loops closed, "
+                f"{lc.total_fuse_count} points fused; keyframe ATE before / "
+                f"after the first closure "
+                f"{first[2] if first else float('nan'):.5f} / "
+                f"{first[3] if first else float('nan'):.5f} m; PRV window "
+                f"BA {n_lba} times; loop closing {lcm['per_kf']:.2f} ms a "
+                f"keyframe over {lcm['n_kf']} (the closing keyframe "
+                f"{lcm['closing_kf']})")
+            check_graphs(torch, tag, chain_graphs(vio.backend._chain_graph))
+            if lost or not vio.final_inited or n_lba < 1 \
+                    or lc.n_loops_closed != 1 or not lc.total_fuse_count > 0 \
+                    or not out["ate_gba"] < 0.02:
+                fail("vio_loop misses its bars")
+
+    # 15. stereo_vio over the async mapping worker: the window BA on the
+    # worker, its chain-block graphs captured there while tracking goes on
+    tag = "[15 stereo_vio async, seed 0]"
+    cuda_build.reset_launches()
+    out = run_row(torch, dev, "stereo_vio", 0, async_mapping=True,
+                  vio_cfg=dict(init_final_span=VIO_ASYNC_FINAL_SPAN))
+    launches_place["stereo_vio_async", None] = dict(cuda_build.LAUNCHES)
+    vio, states = out["front"], out["states"]
+    threads = out["window_ba_threads"]
+    chain = [] if vio.backend is None else \
+        chain_graphs(vio.backend._chain_graph)
+    on_worker = [g for _, g in chain if g.replays["local-mapping"]]
+    after = 1e3 * np.asarray(out["frame_s"][(out["init_at"] or 0) + 1:])
+    log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels, "
+        f"mapping on the worker, final init after "
+        f"{VIO_ASYNC_FINAL_SPAN} s of keyframes: VI init at frame "
+        f"{out['init_at']} (final: {vio.final_inited}), |g| "
+        f"{np.linalg.norm(vio.gw):.4f}, bg {vio.bg}; LOST "
+        f"{states.count('LOST')}, ODOMOK {states.count('ODOMOK')}; keyframe "
+        f"ATE {out['ate_no_gba']:.5f} m (phase 12, sync: "
+        f"{vio_ate['stereo_vio']:.5f} m); PRV window BA {len(threads)} "
+        f"times, on threads {sorted(set(threads))}; {len(on_worker)} of "
+        f"{len(chain)} chain-block graphs replayed on the worker; whole "
+        f"frame after the init median "
+        f"{np.median(after) if after.size else float('nan'):.2f} ms; "
+        f"launches {launches_place['stereo_vio_async', None]} "
+        f"({out['run_s']:.1f} s)")
+    check_counts("stereo_vio async", launches_place["stereo_vio_async", None],
+                 {"tail_fused": 0}, vio_path)
+    check_graphs(torch, tag, [
+        ("the fused solve", g) for g in vio._fused.graphs.values()]
+        + [(f"the preintegration of {g.inputs[0].shape[0]} samples", g)
+           for g in vio._preint.graphs.values()] + chain)
+    if states.count("LOST") or not vio.final_inited or not threads \
+            or set(threads) != {"local-mapping"} or not on_worker \
+            or abs(np.linalg.norm(vio.gw) - 9.81) > 0.05 \
+            or np.abs(vio.bg - VIO_BG).max() > 1.2e-2 \
+            or not out["ate_no_gba"] < 0.02:
+        fail("stereo_vio async misses its bars")
+
     meta = {
         "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99"),
         "gather_patches": ("gather.cu", "vieo_slam_tpu/ops/pallas_gather.py:73"),
@@ -1283,7 +1616,7 @@ def main():
                    "rgbd_full_width": launches_rgbd[k],
                    "mono_known": launches_mono[k]}
         for (path, seed), counts in launches_place.items():
-            by_path[path if seed == PLACE_SEEDS[-1]
+            by_path[path if seed in (None, PLACE_SEEDS[-1])
                     else f"{path}_seed{seed}"] = counts[k]
         kernels.append({
             "name": k, "route": "cuda",
@@ -1297,7 +1630,7 @@ def main():
             "device_ms": r["device_ms"],
             **{x: r[x] for x in ("pair_ms", "pair_device_ms", "candidates",
                                  "survivors", "corners") if x in r}})
-    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,21 +118,21 @@ def main():
     for row, seed in ((r, int(x)) for r in args.rows.split(",")
                       for x in args.seeds.split(",")):
         relocs.clear()
-        out = chip_smoke.run_place_recognition(
+        out = chip_smoke.run_row(
             torch, dev, row, seed, width=args.width,
             n_features=args.features, n_levels=args.levels)
         system, states = out["system"], out["states"]
         ts = out["ts"]
-        # the ground truth of the row, as run_place_recognition made it
+        # the ground truth of the row, as run_row made it
         from vieo_slam_tpu_torch.sim import world as sim
 
         if row == "stereo_loop":
-            Rwc, twc = sim.circle_trajectory(
+            Rwc, twc, _, _ = sim.circle_trajectory(
                 ts, radius=chip_smoke.LOOP_RADIUS,
                 omega=2 * np.pi / (chip_smoke.LOOP_FRAMES_PER_LAP * 0.1),
                 look_outward=True)
         else:
-            Rwc, twc = sim.circle_trajectory(ts, radius=1.0,
+            Rwc, twc, _, _ = sim.circle_trajectory(ts, radius=1.0,
                                              omega=chip_smoke.MONO_OMEGA,
                                              look_outward=True)
         Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Run the port's async-mapping and VIO rows on one GPU and hold their
+means against the JAX package's ACCURACY_r05.json.
+
+    python3 scripts/vio_rows.py [--width 640 --features 600 --levels 4]
+        [--rows stereo_async,stereo_vio,vio_blackout,vio_loop]
+        [--seeds 11,18,25] [--out FILE]
+
+The rows are examples/evaluate_ntimes.py's, built by chip_smoke.run_row
+(phases 11-14 of chip_smoke.py run them at 752x480, 1200 features, 8
+levels); the defaults are the JAX package's own row configuration and
+seeds (seed0 11 + 7 i).  Each row reports what evaluate_ntimes.py does:
+the keyframe ATE without and with the final global BA, the LOST, ODOMOK
+and relocalization counts and the keyframe ATE after the recovery
+(blackout), the loops closed, the fused points and the keyframe ATE
+before and after the first closure (loop).  A mean agrees with the
+reference when its ATEs are within 30 % or 1 mm of it (whichever is
+larger) and its counts within one.  Prints the card's name and power
+limit first; with --out, writes every run's numbers there as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+ATE_KEYS = ("rmse_noFullBA", "rmse_fullBA", "rmse_postRecovery",
+            "rmse_preLC", "rmse_postLC")
+COUNT_KEYS = ("n_lost", "n_odomok", "n_relocs", "loops_closed")
+
+
+def row_numbers(row, out) -> dict:
+    """evaluate_ntimes.py's numbers of one run."""
+    c = out["report"]["counters"]
+    r = {"rmse_noFullBA": out["ate_no_gba"], "rmse_fullBA": out["ate_gba"]}
+    if row.endswith("_blackout"):
+        r.update(n_lost=c.get("state_LOST", 0), n_odomok=c.get(
+            "state_ODOMOK", 0), n_relocs=c.get("reloc_success", 0),
+            rmse_postRecovery=out["ate_post_recovery"])
+    if row.endswith("_loop"):
+        lc = out["system"].loop_closer
+        first = out["closures"][0] if out["closures"] else (0, 0, np.nan,
+                                                            np.nan)
+        r.update(loops_closed=len(out["closures"]),
+                 rmse_preLC=first[2], rmse_postLC=first[3],
+                 fused_points=lc.total_fuse_count)
+    if out["init_at"] is not None:
+        r["vi_init_frame"] = out["init_at"]
+    return {k: float(v) for k, v in r.items()}
+
+
+def verdict(mean: dict, ref: dict) -> list:
+    """(key, port mean, reference, agrees) for every key both carry."""
+    rows = []
+    for k, v in mean.items():
+        want = ref.get("avg_" + k)
+        if want is None:
+            continue
+        if k in ATE_KEYS:
+            ok = abs(v - want) <= max(0.3 * want, 1e-3)
+        elif k in COUNT_KEYS:
+            ok = abs(v - want) <= 1.0
+        else:
+            ok = None
+        rows.append((k, v, want, ok))
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=640)
+    ap.add_argument("--features", type=int, default=600)
+    ap.add_argument("--levels", type=int, default=4)
+    ap.add_argument("--rows",
+                    default="stereo_async,stereo_vio,vio_blackout,vio_loop")
+    ap.add_argument("--seeds", default="11,18,25")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("vio_rows: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = chip_smoke.nvidia_smi()
+    print(smi, flush=True)
+    ref = json.loads((ROOT / "ACCURACY_r05.json").read_text())["scenarios"]
+    size = f"{args.width}x480, {args.features} features, {args.levels} levels"
+    report = {"card": smi, "size": size, "runs": {}, "means": {}}
+    all_ok = True
+    for row in args.rows.split(","):
+        runs = []
+        for seed in (int(x) for x in args.seeds.split(",")):
+            out = chip_smoke.run_row(torch, dev, row, seed, width=args.width,
+                                     n_features=args.features,
+                                     n_levels=args.levels)
+            r = row_numbers(row, out)
+            r["seconds"] = out["run_s"]
+            runs.append(r)
+            print(f"{row} seed {seed} at {size}: "
+                  + ", ".join(f"{k} {v:.5g}" for k, v in r.items()),
+                  flush=True)
+        mean = {k: float(np.nanmean([r.get(k, np.nan) for r in runs]))
+                for k in dict.fromkeys(k for r in runs for k in r)}
+        report["runs"][row], report["means"][row] = runs, mean
+        for k, v, want, ok in verdict(mean, ref.get(row, {})):
+            all_ok &= ok is not False
+            print(f"  {row} mean {k}: port {v:.5g}, ACCURACY_r05 {want:.5g}"
+                  f" -> {'agrees' if ok else 'DIFFERS' if ok is False else ''}",
+                  flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    print(f"all rows agree with ACCURACY_r05: {all_ok}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

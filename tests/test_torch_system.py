@@ -32,10 +32,12 @@ from vieo_slam_tpu_torch.backend.loop_closing import LoopCloser
 from vieo_slam_tpu_torch.cameras import models as tcm
 from vieo_slam_tpu_torch.frontend import frame as tframe
 from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
+from vieo_slam_tpu_torch.io.odom_ring import OdomRing
 from vieo_slam_tpu_torch.map.map_state import MapConfig, MapState
 from vieo_slam_tpu_torch.ops import orb as torb
 from vieo_slam_tpu_torch.sim import world as tworld
 from vieo_slam_tpu_torch.system import System, SystemConfig
+from vieo_slam_tpu_torch.vio.backend import VioBackend
 
 # One intra-op thread: the suite runs several worker processes at once and
 # the tensors here are small, so more threads only contend for the cores.
@@ -179,12 +181,14 @@ def test_renderer_matches_jax():
     np.testing.assert_array_equal(world_t.pw, world_j.pw)
     np.testing.assert_array_equal(world_t.desc, world_j.desc)
     ts = np.arange(3) * 0.3
-    Rwc, twc, _, _ = jworld.circle_trajectory(ts, radius=1.0, omega=0.25,
-                                              look_outward=True)
-    Rwc_t, twc_t = tworld.circle_trajectory(ts, radius=1.0, omega=0.25,
-                                            look_outward=True)
-    np.testing.assert_array_equal(Rwc_t, Rwc)
-    np.testing.assert_array_equal(twc_t, twc)
+    want = jworld.circle_trajectory(ts, radius=1.0, omega=0.25,
+                                    look_outward=True)
+    got = tworld.circle_trajectory(ts, radius=1.0, omega=0.25,
+                                   look_outward=True)
+    for g, w in zip(got, want):     # Rwc, twc, v_w, a_w
+        np.testing.assert_array_equal(g, w)
+    Rwc, twc = want[:2]
+    Rwc_t, twc_t = got[:2]
     Rcw, tcw = jworld.trajectory_to_tcw(Rwc, twc)
     Rcw_t, tcw_t = tworld.trajectory_to_tcw(Rwc_t, twc_t)
     np.testing.assert_array_equal(Rcw_t, Rcw)
@@ -215,6 +219,11 @@ def test_port_imports_no_jax():
                or m.startswith("jax.") or m.startswith("jaxlib")]
         assert not bad, bad
         assert len(names) > 25, names
+        vio = {pkg.__name__ + "." + m for m in (
+            "math.navstate", "math.preintegration", "solvers.imu_factors",
+            "solvers.vio_ba", "solvers.vio_local_ba", "vio.initialization",
+            "vio.backend", "vio.frontend", "io.odom_ring")}
+        assert vio <= set(names), vio - set(names)
         print("ok", len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -236,3 +245,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         tframe.build_stereo_frame(img, img, cfg, bf=BF)
     with pytest.raises(RuntimeError, match="CUDA"):
         LoopCloser(cam, BF, MapState(MapConfig()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(cam, BF, SystemConfig(async_mapping=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VioBackend(MapState(MapConfig()), cam, BF, OdomRing(), np.eye(3),
+                   np.zeros(3))

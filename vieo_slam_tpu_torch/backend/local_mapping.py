@@ -68,6 +68,13 @@ class LocalMapper:
         self.cfg = cfg or LocalMappingConfig()
         self.device = resolve_device(device)
         self.recent_lms: list[tuple[int, np.ndarray]] = []  # (kf, lm_ids)
+        # Set by a VIO front end once its keyframe backend (the PRV window
+        # BA of vio/backend.py) takes over from the vision-only local BA.
+        self.skip_local_ba = False
+        # Set by a VIO front end once odometry is fused: keyframe culling
+        # then keeps the temporal gaps that the IMU chains span short.
+        self.vio_active = False
+        self.vio_timespan_cap = 0.5
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(
@@ -87,8 +94,9 @@ class LocalMapper:
             self.recent_lms.append((k, new_ids))
         with metrics.timer("lm.cull"), m.lock:
             self.cull_landmarks(k)
-        with metrics.timer("lm.local_ba"):
-            self.run_local_ba(k)
+        if not self.skip_local_ba:
+            with metrics.timer("lm.local_ba"):
+                self.run_local_ba(k)
         with metrics.timer("lm.kf_cull"), m.lock:
             self.cull_keyframes(k)
         with m.lock:
@@ -421,8 +429,12 @@ class LocalMapper:
             prev, nxt = int(m.kf_prev[kf]), int(m.kf_next[kf])
             if prev >= 0 and nxt >= 0:
                 gap = m.kf_timestamp[nxt] - m.kf_timestamp[prev]
-                if gap > self.cfg.kf_cull_max_gap:
+                cap = min(self.vio_timespan_cap, self.cfg.kf_cull_max_gap) \
+                    if self.vio_active else self.cfg.kf_cull_max_gap
+                if gap > cap:
                     continue
+            elif self.vio_active:
+                continue
             kp_sel = np.nonzero(m.kf_lm_idx[kf] >= 0)[0]
             lms = m.kf_lm_idx[kf, kp_sel]
             if lms.size == 0:

@@ -20,12 +20,16 @@ import torch
 from .backend.loop_closing import LoopCloser, LoopClosingConfig
 from .cameras import models as cm
 from .frontend.frame import Frame, make_frame_from_features
+from .io.odom_ring import OdomRing
 from .loop.keyframe_db import KeyFrameDatabase
 from .loop.vocabulary import Vocabulary
 from .map.map_state import MapConfig, MapState
+from .math.navstate import NavState
+from .math.preintegration import ImuPreint
 from .ops.orb import OrbConfig
 from .solvers.initializer import MonoInitResult
 from .system import SensorMode, SystemConfig
+from .vio.frontend import VioConfig, VioFrontend
 
 _MAP_ARRAYS = (
     "kf_valid", "kf_Rcw", "kf_tcw", "kf_timestamp", "kf_frame_id", "kf_Rwb",
@@ -79,13 +83,16 @@ def frame_from_jax(jframe, device=None) -> Frame:
 
 
 def system_config_from_jax(jcfg, tracker=None, mapper=None) -> SystemConfig:
-    """The port's SystemConfig with the JAX SystemConfig's sensor mode and
-    map sizes; tracker and mapper configurations are passed as the port's
-    own (their JAX counterparts carry fields of slices not ported yet)."""
+    """The port's SystemConfig with the JAX SystemConfig's sensor mode, map
+    sizes and async-mapping fields; tracker and mapper configurations are
+    passed as the port's own (their JAX counterparts carry fields of
+    slices not ported yet)."""
     cfg = SystemConfig(
         sensor=SensorMode[jcfg.sensor.name],
         map=MapConfig(**{f.name: getattr(jcfg.map, f.name)
-                         for f in dataclasses.fields(MapConfig)}))
+                         for f in dataclasses.fields(MapConfig)}),
+        async_mapping=bool(jcfg.async_mapping),
+        kf_queue_depth=int(jcfg.kf_queue_depth))
     if tracker is not None:
         cfg.tracker = tracker
     if mapper is not None:
@@ -134,3 +141,72 @@ def loop_closer_from_jax(jlc, cam: cm.Camera, map_state: MapState,
     lc.n_loops_closed = int(jlc.n_loops_closed)
     lc.total_fuse_count = int(jlc.total_fuse_count)
     return lc
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def navstate_from_jax(jns, device="cpu") -> NavState:
+    """A port NavState (f32) from the JAX package's (same field order)."""
+    return NavState(*(_f32(x, device) for x in jns))
+
+
+def imu_preint_from_jax(jpre, device="cpu") -> ImuPreint:
+    """A port ImuPreint (f32) from the JAX package's (same field order)."""
+    return ImuPreint(*(_f32(x, device) for x in jpre))
+
+
+def vio_config_from_jax(jcfg) -> VioConfig:
+    return VioConfig(**{f.name: getattr(jcfg, f.name)
+                        for f in dataclasses.fields(VioConfig)})
+
+
+def odom_ring_from_jax(jring) -> OdomRing:
+    """A copy of the JAX package's odometry ring.  Its samples are read
+    from the numpy fallback; the native ring keeps them in C++ and offers
+    no way to read them back."""
+    if getattr(jring, "native", False):
+        raise NotImplementedError(
+            "the native odometry ring cannot be read back; build the JAX "
+            "ring with its numpy fallback")
+    ring = OdomRing(jring.capacity)
+    ring._t = np.array(jring._t, np.float64)
+    ring._v = np.array(jring._v, np.float32)
+    ring._n = int(jring._n)
+    return ring
+
+
+def vio_frontend_from_jax(jvio, system) -> VioFrontend:
+    """The port's VioFrontend over `system` (a port System) in the JAX
+    front end's state: gravity, biases, the last NavState and its prior,
+    the keyframe times, the init flags and the odometry rings.  A
+    backend the JAX front end had engaged is created again, without its
+    init global BA."""
+    vio = VioFrontend(system, Rcb=np.asarray(jvio.Rcb),
+                      tcb=np.asarray(jvio.tcb),
+                      cfg=vio_config_from_jax(jvio.cfg))
+    dev = system.device
+    vio.gw = np.array(jvio.gw, np.float32)
+    vio.bg = np.array(jvio.bg, np.float32)
+    vio.ba = np.array(jvio.ba, np.float32)
+    vio.ns_last = None if jvio.ns_last is None \
+        else navstate_from_jax(jvio.ns_last, dev)
+    vio.prior_info = None if jvio.prior_info is None \
+        else np.array(jvio.prior_info, np.float32)
+    vio.last_t = jvio.last_t
+    vio.kf_times = [(int(k), float(t)) for k, t in jvio.kf_times]
+    vio.inited = bool(jvio.inited)
+    vio.final_inited = bool(jvio.final_inited)
+    vio.ring = odom_ring_from_jax(jvio.ring)
+    if jvio.enc_ring is not None:
+        vio.enc_ring = odom_ring_from_jax(jvio.enc_ring)
+    if jvio.backend is not None:
+        cfg = vio.cfg
+        run_init_gba, cfg.run_init_gba = cfg.run_init_gba, False
+        vio._attach_backend()
+        cfg.run_init_gba = run_init_gba
+        vio.backend.gravity = np.array(jvio.backend.gravity, np.float32)
+    if jvio.sys.mapper.vio_active:
+        system.mapper.vio_active = True
+    return vio

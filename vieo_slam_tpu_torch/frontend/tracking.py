@@ -7,8 +7,11 @@ landmark slab, windowed Hamming association (kernel B4) and motion-only
 BA -- runs as tensor code on the frame's device, as does the two-view
 monocular initializer (descriptor matching in kernel B3).  A LOST frame
 is relocalized by frontend/relocalization.py (System.track_frame calls it
-when a loop closer is attached); the odometry predictions come with their
-slices.
+when a loop closer is attached).  An odometry front end (vio/frontend.py)
+hands in an external pose prediction; when vision fails on such a frame
+the tracker bridges it on that prediction (ODOMOK) instead of going LOST.
+Map-gauge corrections from an async mapping worker arrive through
+push_correction and apply at the next frame boundary.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class TrackState(enum.Enum):
     NOT_INITIALIZED = 0
     OK = 1
     LOST = 2
+    ODOMOK = 3      # dead-reckoning bridge on an odometry prediction
 
 
 @dataclasses.dataclass
@@ -50,6 +54,7 @@ class TrackerConfig:
     # rotation) pixels, so the coarse window widens by that much (capped).
     adaptive_radius_gain: float = 1.5
     adaptive_radius_max: float = 60.0
+    odomok_max_frames: int = 50      # dead-reckoning bridge length cap
     use_predicted_scale: bool = False  # PredictScale-driven search radii
     th_depth: float = 4.0            # init/creation depth gate
     # (stage1 rounds, stage1 iters, stage2 rounds, stage2 iters)
@@ -127,7 +132,17 @@ class Tracker:
         self.frame_id = 0
         self.ref_tracked = 0         # inlier count at last KF creation
         self.last_new_kf: Optional[int] = None  # KF created this frame
-        self.just_relocalized = False    # set by relocalization
+        self.just_relocalized = False    # set by relocalization, read
+                                         # and cleared by a VIO front end
+        self.external_prediction = None  # (Rcw, tcw) from odometry
+        self._last_pred_external = None  # the prediction used this frame
+        self.odomok_frames = 0           # consecutive ODOMOK frames
+        self.last_result: Optional[TrackKernelResult] = None
+        self.last_slab = None            # (pw, lm_ids) of the last track
+        # Async mapping: the worker publishes dT = Tcw_old^-1 Tcw_new of
+        # each keyframe it corrected (composed under map.lock when several
+        # land between two frames); Tcw <- Tcw dT at the next frame.
+        self.pending_correction = None   # (dR [3, 3], dt [3]) or None
         self._mono_init_frame: Optional[Frame] = None  # held reference
         # trajectory log: (timestamp, Rcw, tcw, state)
         self.trajectory = []
@@ -175,7 +190,14 @@ class Tracker:
         self.tcw = self.map.kf_tcw[k].copy()
 
     def _predict_pose(self):
-        """Constant-velocity prediction of this frame's pose."""
+        """This frame's predicted pose: the external (odometry) prediction
+        when one was handed in, else the constant-velocity model."""
+        if self.external_prediction is not None:
+            R, t = self.external_prediction
+            self.external_prediction = None
+            self._last_pred_external = (np.asarray(R, np.float32),
+                                        np.asarray(t, np.float32))
+            return self._last_pred_external
         if self.velocity is None:
             return self.Rcw, self.tcw
         dR, dt = self.velocity
@@ -323,13 +345,42 @@ class Tracker:
             self.bf, self.cam,
             schedule=self.cfg.schedule, opt_mode=self.cfg.opt_mode)
 
+    def push_correction(self, R_old, t_old, R_new, t_new):
+        """Record a map-gauge correction dT = T_old^-1 T_new from the
+        mapping worker, composed with any not yet applied (call under
+        map.lock)."""
+        dR = R_old.T @ R_new
+        dt = R_old.T @ (t_new - t_old)
+        if self.pending_correction is not None:
+            Ra, ta = self.pending_correction
+            dR, dt = Ra @ dR, Ra @ dt + ta
+        self.pending_correction = (dR.astype(np.float32),
+                                   dt.astype(np.float32))
+
+    def _apply_pending_correction(self):
+        """Tcw <- Tcw dT: keep the frame-to-keyframe relative pose in the
+        corrected map gauge (call under map.lock)."""
+        corr, self.pending_correction = self.pending_correction, None
+        if corr is None:
+            return
+        dR, dt = corr
+        R_cur = self.Rcw
+        self.Rcw = normalize_rotation_np(R_cur @ dR)
+        self.tcw = (R_cur @ dt + self.tcw).astype(np.float32)
+
     def _track_frame(self, frame: Frame):
         with self.map.lock:
+            self._apply_pending_correction()
             slab = self._local_landmark_slab()
         lm_ids = slab[4]
+        used_external = self.external_prediction is not None
         R0, t0 = self._predict_pose()
+        # An external prediction tracks rotation directly: its error does
+        # not grow with rotational acceleration, so it keeps the tight
+        # window.
         coarse_r = self.cfg.match_radius_coarse
-        if self.velocity is not None and self._prev_vel_rot is not None:
+        if (not used_external and self.velocity is not None
+                and self._prev_vel_rot is not None):
             dacc = self.velocity[0] @ self._prev_vel_rot.T
             cosang = np.clip((np.trace(dacc) - 1.0) / 2.0, -1.0, 1.0)
             ang = float(np.arccos(cosang))
@@ -348,10 +399,17 @@ class Tracker:
                 if n_inl >= self.cfg.min_inliers_ok:
                     break
         if n_inl < self.cfg.min_inliers_ok:
+            if (self._last_pred_external is not None
+                    and self.odomok_frames < self.cfg.odomok_max_frames):
+                self._odomok_bridge(frame)
+                return
             self.state = TrackState.LOST
             self.velocity = None
             self._prev_vel_rot = None
+            self._last_pred_external = None
             return
+        self.odomok_frames = 0
+        self._last_pred_external = None
         R_prev, t_prev = self.Rcw.copy(), self.tcw.copy()
         self.Rcw = normalize_rotation_np(_np(res.Rcw))
         self.tcw = _np(res.tcw)
@@ -361,6 +419,8 @@ class Tracker:
             if self.velocity is not None else None
         self.velocity = (dR.astype(np.float32), dt.astype(np.float32))
         self.state = TrackState.OK
+        self.last_result = res
+        self.last_slab = (slab[0], lm_ids)
         self.frames_since_kf += 1
         in_frustum = _np(res.in_frustum)
         inlier = _np(res.inlier)
@@ -377,6 +437,30 @@ class Tracker:
                 self.last_new_kf = k
                 self.ref_tracked = n_inl
                 self.frames_since_kf = 0
+
+    def _odomok_bridge(self, frame: Frame):
+        """Carry the pose through a visual dropout on the odometry
+        prediction; each later frame retries vision from it.  Frames with
+        enough close stereo depth still become keyframes at the
+        dead-reckoned pose, so the territory swept blind gets landmarks."""
+        self.Rcw, self.tcw = self._last_pred_external
+        self._last_pred_external = None
+        self.velocity = None
+        self.odomok_frames += 1
+        self.state = TrackState.ODOMOK
+        depth = _np(frame.depth)
+        kp_valid = _np(frame.valid)
+        n_close = int((kp_valid & (depth > 0)
+                       & (depth < 2.0 * self.cfg.th_depth)).sum())
+        if self.frames_since_kf >= 2 and n_close > 70:
+            with self.map.lock:
+                k = self._insert_keyframe(
+                    frame, np.full(kp_valid.shape[0], -1, np.int32))
+                self.last_kf_id = k
+                self.last_new_kf = k
+                self.frames_since_kf = 0
+        else:
+            self.frames_since_kf += 1
 
     # ------------------------------------------------------------------
 

@@ -25,6 +25,11 @@ def _eye_like(x: torch.Tensor, shape) -> torch.Tensor:
     return torch.eye(3, dtype=x.dtype, device=x.device).expand(shape)
 
 
+def mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product [..., i, j] x [..., j] -> [..., i]."""
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
 def hat(phi: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator: [..., 3] -> [..., 3, 3]."""
     x, y, z = phi[..., 0], phi[..., 1], phi[..., 2]
@@ -55,6 +60,10 @@ def _sinc_ratios(theta_sq: torch.Tensor):
 
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula: [..., 3] -> [..., 3, 3]."""
+    if phi.dim() == 1:
+        # Forward-mode AD (torch.func.jacfwd) gives a 0-d angle meeting a
+        # Python scalar an f64 tangent: run it with a batch of one.
+        return so3_exp(phi[None])[0]
     A, B, _ = _sinc_ratios(_sq_norm(phi))
     K = hat(phi)
     return (_eye_like(phi, K.shape) + A[..., None, None] * K
@@ -63,6 +72,8 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Matrix log of SO(3), robust near 0 and pi: [..., 3, 3] -> [..., 3]."""
+    if R.dim() == 2:        # see so3_exp
+        return so3_log(R[None])[0]
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-15, 1.0)
     small = cos_t > 1.0 - 1e-6
@@ -106,6 +117,8 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 def so3_jr(phi: torch.Tensor) -> torch.Tensor:
     """Right Jacobian of SO(3)."""
+    if phi.dim() == 1:      # see so3_exp
+        return so3_jr(phi[None])[0]
     _, B, C = _sinc_ratios(_sq_norm(phi))
     K = hat(phi)
     return (_eye_like(phi, K.shape) - B[..., None, None] * K
@@ -119,6 +132,8 @@ def so3_jl(phi: torch.Tensor) -> torch.Tensor:
 
 def so3_jr_inv(phi: torch.Tensor) -> torch.Tensor:
     """Inverse right Jacobian, Taylor-guarded."""
+    if phi.dim() == 1:      # see so3_exp
+        return so3_jr_inv(phi[None])[0]
     theta_sq = _sq_norm(phi)
     small = theta_sq < _EPS
     safe_sq = torch.where(small, torch.ones_like(theta_sq), theta_sq)

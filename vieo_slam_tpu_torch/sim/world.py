@@ -3,7 +3,8 @@
 Port of the pixel-rendering part of vieo_slam_tpu/sim/world.py: a field
 of landmarks with fixed texture stamps, rendered through a pinhole camera
 into grayscale views (optionally with a per-pixel depth map, photometric
-noise and brightness drift) and stereo pairs, plus the circle trajectory.
+noise and brightness drift) and stereo pairs, plus the circle trajectory
+and the IMU stream along a trajectory.
 A fraction of the landmarks may oscillate through the world (dynamic
 scene content).  Numpy, with the port's own `cameras.project`; the same
 seed gives the same world and the same images as the JAX package's
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..cameras import models as cm
+from ..math import lie
 
 
 @dataclasses.dataclass
@@ -156,27 +158,96 @@ class SyntheticWorld:
         return left, self.render_view(cam, Rcw, tcw_r, **kw)
 
 
-def circle_trajectory(t, radius=4.0, omega=0.3, z=0.0, look_outward=False):
-    """Camera circling the origin looking inward (or outward).
+def circle_trajectory(t, radius=4.0, omega=0.3, z=0.0, look_outward=False,
+                      z_amp=0.0, z_omega=1.1, pitch_amp=0.0, pitch_omega=0.8):
+    """Camera circling the origin looking inward (or outward), with
+    optional vertical bobbing (z_amp) and nodding (pitch_amp): a flat
+    yaw-only circle leaves the accelerometer bias along gravity
+    unobservable, so VIO runs want some excitation.
 
-    Returns (Rwc [T, 3, 3], twc [T, 3]) world-from-camera, f32."""
+    Returns (Rwc [T, 3, 3], twc [T, 3], v_w [T, 3], a_w [T, 3]):
+    world-from-camera poses and the world velocity and acceleration
+    (without gravity), f32."""
     t = np.asarray(t, np.float64)
     ang = omega * t
-    pos = np.stack([radius * np.cos(ang), radius * np.sin(ang),
-                    np.full_like(ang, z)], -1)
+    zt = z + z_amp * np.sin(z_omega * t)
+    pos = np.stack([radius * np.cos(ang), radius * np.sin(ang), zt], -1)
     fwd = -np.stack([pos[:, 0], pos[:, 1], np.zeros_like(ang)], -1)
     fwd /= np.linalg.norm(fwd, axis=-1, keepdims=True)
     if look_outward:
         fwd = -fwd
+    if pitch_amp:
+        th = pitch_amp * np.sin(pitch_omega * t)
+        fwd = np.stack([fwd[:, 0] * np.cos(th), fwd[:, 1] * np.cos(th),
+                        np.sin(th)], -1)
     up = np.tile([0.0, 0.0, -1.0], (len(t), 1))
     right = np.cross(fwd, up)
     right /= np.linalg.norm(right, axis=-1, keepdims=True)
     down = np.cross(fwd, right)
     Rwc = np.stack([right, down, fwd], axis=-1)  # columns = cam axes
-    return Rwc.astype(np.float32), pos.astype(np.float32)
+    v = np.stack([-radius * omega * np.sin(ang),
+                  radius * omega * np.cos(ang),
+                  z_amp * z_omega * np.cos(z_omega * t)], -1)
+    a_w = np.stack([-radius * omega ** 2 * np.cos(ang),
+                    -radius * omega ** 2 * np.sin(ang),
+                    -z_amp * z_omega ** 2 * np.sin(z_omega * t)], -1)
+    return (Rwc.astype(np.float32), pos.astype(np.float32),
+            v.astype(np.float32), a_w.astype(np.float32))
 
 
 def trajectory_to_tcw(Rwc, twc):
     Rcw = np.swapaxes(Rwc, -1, -2)
     tcw = -np.einsum("tij,tj->ti", Rcw, twc)
     return Rcw.astype(np.float32), tcw.astype(np.float32)
+
+
+def body_rates_from_poses(Rwb, t):
+    """Angular velocity in the body frame from a rotation sequence, by
+    finite differences."""
+    dR = np.einsum("tji,tjk->tik", Rwb[:-1], Rwb[1:])
+    dt = np.maximum(np.diff(np.asarray(t, np.float64)), 1e-9)
+    w = np.zeros((len(t), 3), np.float32)
+    w[1:] = _so3_log(dR) / dt[:, None]
+    w[0] = w[1]
+    return w
+
+
+def _so3_log(R):
+    return lie.so3_log(torch.from_numpy(np.ascontiguousarray(R))).numpy()
+
+
+def interp(t_out, t_in, vals):
+    """Per-channel linear interpolation of vals [T, C] at t_out."""
+    return np.stack([np.interp(t_out, t_in, vals[:, i])
+                     for i in range(vals.shape[1])], -1)
+
+
+def make_imu_samples(t_frames, Rwb, v_w, a_w, rate_hz=200.0,
+                     gravity=(0.0, 0.0, -9.81), bg=None, ba=None,
+                     noise_g=0.0, noise_a=0.0, seed=0):
+    """A dense IMU stream between the frame timestamps: gyro = the body
+    rates, acc = R_wb^T (a_w - g) at the attitude interpolated on SO(3)
+    between frames, plus biases and white noise (numpy RandomState(seed)).
+    Returns (t [S] f64, gyro [S, 3], acc [S, 3])."""
+    rng = np.random.RandomState(seed)
+    ts = np.arange(t_frames[0], t_frames[-1], 1.0 / rate_hz)
+    g = np.asarray(gravity)
+    bg = np.zeros(3) if bg is None else np.asarray(bg)
+    ba = np.zeros(3) if ba is None else np.asarray(ba)
+    w_b = interp(ts, t_frames, body_rates_from_poses(Rwb, t_frames))
+    a_world = interp(ts, t_frames, a_w)
+    i1 = np.clip(np.searchsorted(t_frames, ts, side="right"), 1,
+                 len(t_frames) - 1)
+    i0 = i1 - 1
+    denom = np.maximum(t_frames[i1] - t_frames[i0], 1e-9)
+    frac = np.clip((ts - t_frames[i0]) / denom, 0.0, 1.0)
+    R0, R1 = Rwb[i0], Rwb[i1]
+    dphi = _so3_log(np.einsum("tji,tjk->tik", R0, R1))
+    dRot = lie.so3_exp(torch.from_numpy(
+        np.ascontiguousarray(dphi * frac[:, None]))).numpy()
+    Rb = np.einsum("tij,tjk->tik", R0, dRot)
+    a_b = np.einsum("tij,ti->tj", Rb, a_world - g)   # R^T (a - g)
+    gyro = w_b + bg + rng.randn(*w_b.shape) * noise_g
+    acc = a_b + ba + rng.randn(*a_b.shape) * noise_a
+    return ts.astype(np.float64), gyro.astype(np.float32), \
+        acc.astype(np.float32)
