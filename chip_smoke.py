@@ -100,6 +100,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
      keyframe ATE < 0.02 m, B1-B4 launched, and every graph of the run
      (fused solve, each preintegration length, each chain-block layout)
      equal to its plain call on the same inputs.
+ 16. multicam_kb8: the row's KB8 rig of 2 cameras (fx 400, principal point
+     at the centre, dist 0.02, 0.002, -0.001, 0.0005, the partner 0.2 m to
+     the side), first parsed from a TUM-VI-style YAML by the port's
+     io.config and checked equal to the row's rig, 60 frames at 752x480,
+     1200 features, 8 levels through build_multicam_frame (return_stats)
+     in the blackout world without the blackout.  Bars: 0 LOST, keyframe ATE
+     < 0.02 m, view-1 triangulations on every frame, B1 and B2 exactly once
+     a frame, B3 at least once a frame, B4 launched.  Prints the
+     triangulations a frame and mean_err2 by view beside the row's.
+ 17. multicam4_kb8: two such pairs, the second 0.1 m below (32 (level,
+     image) entries in one B1 and one B2 launch): the bars of phase 16, B3
+     at least 3 times a frame.  Then B1 and B2 over the 32 entries and B3
+     under each pair's epipolar mask against their plain versions.
+ 18. veo_blackout: the stereo row through an EncoderFrontend fed 100 Hz
+     wheel speeds (half track 0.28 m, noise 2e-3, seed 200), frames 36-47
+     black.  Bars: fused on every OK frame from the second on, the black
+     frames ODOMOK, 0 LOST, 0 relocalizations, keyframe ATE after the
+     recovery < 0.02 m, the fused solve's graph equal to its plain call.
+     Prints the ms of a prediction and of a fused solve.
+ 19. vieo: phase 12's row with VioConfig(use_encoder=True) and the row's
+     encoder.  Bars: those of phase 12.
+ 20. map_reuse: stereo; at frame 36 the map is saved, a fresh System and
+     LoopCloser load it and the run goes on.  Bars: a relocalization
+     within the first 3 frames after the load, never LOST after it,
+     keyframe ATE after it < 0.02 m, B3 and B4 launched inside the
+     relocalization.  Prints the ms of save_map and load_map.
+ Phases 16-20 are `rig_encoder_reuse_phases`, and each zeroes the launch
+ counters before its run and reads them after.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -109,8 +137,10 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -156,6 +186,9 @@ VIO_BA = np.array([0.05, 0.03, -0.04], np.float32)
 # Phase 15's final-acceptance span of the VI init (the rows' 15 s needs
 # more frames than the 60 of stereo_vio): past it the PRV window BA runs.
 VIO_ASYNC_FINAL_SPAN = 4.0
+# The KB8 rig of the multicam rows of examples/evaluate_ntimes.py.
+RIG_FX = 400.0
+KB8_DIST = [0.02, 0.002, -0.001, 0.0005]
 
 
 _T0 = time.perf_counter()
@@ -617,6 +650,87 @@ def check_place_cases(torch, dev):
     return out
 
 
+def check_rig_kernels(torch, dev, rig, images, cfg):
+    """B1 and B2 over every level of every rig image in one launch each
+    (32 entries for 4 cameras at 8 levels) and B3 under the epipolar mask
+    of each cam0 <-> cam_i pair, against their plain versions, on one
+    multicam frame's images.  Returns {case: {ms, device_ms, plain_ms,
+    bound, ...}}, the bounds counted as phase 3 counts them."""
+    from vieo_slam_tpu_torch.cameras import models as cm
+    from vieo_slam_tpu_torch.frontend.frame import epipolar_mask
+    from vieo_slam_tpu_torch.ops import (cuda_build, cuda_fast, cuda_gather,
+                                         cuda_matching, orb)
+
+    imgs = [torch.from_numpy(x).to(dev) for x in images]
+    pyramids = [orb.build_pyramid(im, cfg) for im in imgs]
+    levels = [lv for p in pyramids for lv in p]
+    th = (cfg.fast_threshold, cfg.fast_min_threshold)
+    n = len(levels)
+    out = {}
+    n0 = cuda_build.LAUNCHES["fast_nms_blend"]
+    got = cuda_fast.fast_nms_blend_multi(levels, *th)
+    if cuda_build.LAUNCHES["fast_nms_blend"] != n0 + 1:
+        fail(f"B1 took more than one launch for {n} rig levels")
+    for g, w in zip(got, cuda_fast.fast_nms_blend_multi_plain(levels, *th)):
+        if not torch.equal(g, w):
+            fail(f"B1 differs from its plain version over {n} rig levels")
+    px, survivors, corners = b1_work(torch, levels, *th)
+    out[f"B1 {n} entries"] = dict(
+        ms=time_ms(torch, lambda: cuda_fast.fast_nms_blend_multi(levels,
+                                                                 *th)),
+        device_ms=device_ms(torch, lambda: cuda_fast.fast_nms_blend_multi(
+            levels, *th), "fast_nms_blend_kernel"),
+        plain_ms=time_ms(torch, lambda: cuda_fast.fast_nms_blend_multi_plain(
+            levels, *th), reps=5),
+        bound=bound(8 * px, B1_REJECT_OPS * px + B1_TEST_OPS * survivors
+                    + B1_SCORE_OPS * corners))
+    centers = [c for p in pyramids for c in tail_centers(torch, p, cfg, th)]
+    r = orb._TAIL_R
+    n0 = cuda_build.LAUNCHES["gather_patches"]
+    got = cuda_gather.gather_patches_multi(levels, centers, r)
+    if cuda_build.LAUNCHES["gather_patches"] != n0 + 1:
+        fail(f"B2 took more than one launch for {n} rig levels")
+    for g, w in zip(got, cuda_gather.gather_patches_multi_plain(
+            levels, centers, r)):
+        if not torch.equal(g, w):
+            fail(f"B2 differs from its plain version over {n} rig levels")
+    n_kp, d = sum(int(c.shape[0]) for c in centers), 2 * r + 1
+    out[f"B2 {n} entries"] = dict(
+        ms=time_ms(torch, lambda: cuda_gather.gather_patches_multi(
+            levels, centers, r)),
+        device_ms=device_ms(torch, lambda: cuda_gather.gather_patches_multi(
+            levels, centers, r), "gather_patches_kernel"),
+        plain_ms=time_ms(torch, lambda: cuda_gather.gather_patches_multi_plain(
+            levels, centers, r), reps=5),
+        bound=bound(4 * px + 8 * n_kp + 4 * n_kp * d * d, 0))
+    f = orb.extract_orb_batch(torch.stack(imgs), cfg, device=dev)
+    rays0 = cm.unproject(rig[0], f.uv[0])
+    for i in range(1, len(rig)):
+        mask = (f.valid[0][:, None] & f.valid[i][None, :]
+                & epipolar_mask(rig[0], rig[i], rays0,
+                                cm.unproject(rig[i], f.uv[i]), 0.01))
+        a = (f.desc[0], f.desc[i], mask.contiguous())
+        got = cuda_matching.fused_best2(*a)
+        want = cuda_matching.fused_best2_plain(*a)
+        err = max(int((x.long() - y.long()).abs().max()) for x, y in
+                  zip(got, want))
+        if err:
+            fail(f"B3 under the epipolar mask of cam0-cam{i} differs from "
+                 f"its plain version (max |diff| {err})")
+        M, N, cand = a[0].shape[0], a[1].shape[0], int(mask.sum())
+        out[f"B3 epipolar cam0-cam{i}"] = dict(
+            ms=time_ms(torch, lambda: cuda_matching.fused_best2(*a)),
+            device_ms=device_ms(torch, lambda: cuda_matching.fused_best2(*a),
+                                "best2_"),
+            plain_ms=time_ms(torch, lambda: cuda_matching.fused_best2_plain(
+                *a), reps=5),
+            bound=bound(32 * (M + N) + M * N + 4 * (3 * M + N),
+                        M * N + HAMMING_OPS * cand),
+            candidates=cand,
+            matched=int((got[1] < cuda_matching.INF).sum()))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 to 10: end to end
 # ---------------------------------------------------------------------------
@@ -808,23 +922,137 @@ def host_waits(torch, fn):
                               "cudaMemcpyAsync", "cudaEventSynchronize")}
 
 
+def rig_cameras(width, n_cams):
+    """The KB8 rig of the multicam rows of examples/evaluate_ntimes.py
+    (fx 400, the principal point at the image centre): one horizontal pair
+    at the stereo baseline and, for 4 cameras, a second pair displaced by
+    half the baseline in y; and the undistorted geometry camera."""
+    from vieo_slam_tpu_torch.cameras import models as cm
+
+    offsets = [np.zeros(3), np.asarray([-BASELINE, 0, 0])]
+    if n_cams == 4:
+        offsets += [np.asarray([0, -0.5 * BASELINE, 0]),
+                    np.asarray([-BASELINE, -0.5 * BASELINE, 0])]
+    cams = [cm.make_kb8(RIG_FX, RIG_FX, width / 2.0, 240.0, KB8_DIST, width,
+                        480, Rcr=np.eye(3, dtype=np.float32),
+                        tcr=off.astype(np.float32)) for off in offsets]
+    geom = cm.make_pinhole(RIG_FX, RIG_FX, width / 2.0, 240.0, width, 480)
+    return cams, geom
+
+
+def encoder_extrinsic(Rwc, v_w):
+    """The rows' body-from-encoder rotation: x along the travel, z up, at
+    the first frame (constant on a differential-drive circle)."""
+    x_e = Rwc[0].T @ (v_w[0] / np.linalg.norm(v_w[0]))
+    z_e = Rwc[0].T @ np.array([0.0, 0.0, 1.0])
+    return np.stack([x_e, np.cross(z_e, x_e), z_e], axis=-1).astype(
+        np.float64)
+
+
+TUMVI_STYLE_YAML = """%YAML:1.0
+# A TUM-VI-style two-camera KB8 rig (Camera2.Trc: camera-from-rig).
+Camera.type: "KannalaBrandt8"
+Camera.fx: {fx}
+Camera.fy: {fx}
+Camera.cx: {cx}
+Camera.cy: 240.0
+Camera.k1: {k[0]}
+Camera.k2: {k[1]}
+Camera.k3: {k[2]}
+Camera.k4: {k[3]}
+Camera.width: {w}
+Camera.height: 480
+Camera.bf: {bf}
+Camera2.fx: {fx}
+Camera2.fy: {fx}
+Camera2.cx: {cx}
+Camera2.cy: 240.0
+Camera2.k1: {k[0]}
+Camera2.k2: {k[1]}
+Camera2.k3: {k[2]}
+Camera2.k4: {k[3]}
+Camera2.Trc: !!opencv-matrix
+  rows: 3
+  cols: 4
+  dt: f
+  data: [1.0, 0.0, 0.0, {tx},
+         0.0, 1.0, 0.0, 0.0,
+         0.0, 0.0, 1.0, 0.0]
+ORBextractor.nFeatures: 1200
+ORBextractor.nLevels: 8
+"""
+
+
+def rig_from_yaml(cams):
+    """The 2-camera rig parsed from a TUM-VI-style YAML by the port's
+    io.config, checked equal to `cams` (rig, geometry camera)."""
+    from vieo_slam_tpu_torch.io import config
+
+    rig, geom = cams
+    c0, c1 = rig
+    text = TUMVI_STYLE_YAML.format(
+        fx=c0.fx, cx=c0.cx, k=[float(x) for x in c0.dist], w=c0.width,
+        bf=c0.fx * BASELINE, tx=float(c1.tcr[0]))
+    fd, path = tempfile.mkstemp(suffix=".yaml")
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    try:
+        settings = config.load_settings(path)
+    finally:
+        os.unlink(path)
+    parsed = config.rig_cameras(settings)
+    for a, b in zip(parsed, rig):
+        same = (a.kind == b.kind and (a.fx, a.fy, a.cx, a.cy, a.width,
+                                      a.height) == (b.fx, b.fy, b.cx, b.cy,
+                                                    b.width, b.height)
+                and all(np.array_equal(getattr(a, x), getattr(b, x))
+                        for x in ("dist", "Rcr", "tcr")))
+        if not same:
+            fail(f"the rig parsed from YAML differs from the row's: {a} "
+                 f"against {b}")
+    if len(parsed) != len(rig) or settings.n_features != 1200:
+        fail("the YAML rig's camera count or ORB settings differ")
+    return parsed, geom
+
+
+def rig_images(rig):
+    """The rig's images of the first frame of the non-loop rows' world."""
+    from vieo_slam_tpu_torch.sim import world as sim
+
+    world = sim.SyntheticWorld(sim.WorldConfig(**BLACKOUT_WORLD))
+    Rwc, twc, _, _ = sim.circle_trajectory(np.zeros(1), radius=1.0,
+                                           omega=MONO_OMEGA,
+                                           look_outward=True)
+    Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
+    return [world.render_view(c, c.Rcr @ Rcw[0], c.Rcr @ tcw[0] + c.tcr)
+            for c in rig]
+
+
 def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
-            profile=None, async_mapping=None, vio_cfg=None):
-    """One row of examples/evaluate_ntimes.py through build_stereo_frame +
-    System.track_frame with a LoopCloser attached, images rendered frame
-    by frame: stereo_blackout, stereo_loop, stereo_async (the 60-frame
-    circle with the async mapping worker), stereo_vio, vio_blackout or
-    vio_loop (the same through a VioFrontend fed the row's IMU stream).
+            profile=None, async_mapping=None, vio_cfg=None, cams=None):
+    """One row of examples/evaluate_ntimes.py through the port's frame
+    builder + System.track_frame with a LoopCloser attached, images
+    rendered frame by frame: stereo_blackout, stereo_loop, stereo_async
+    (the 60-frame circle with the async mapping worker), stereo_vio,
+    vio_blackout or vio_loop (the same through a VioFrontend fed the row's
+    IMU stream), vieo (stereo_vio with the wheel encoder), veo (an
+    EncoderFrontend fed the row's wheel speeds; veo_blackout with the
+    blackout's black frames), multicam_kb8 / multicam4_kb8 (the KB8 rig of
+    2 / 4 cameras through build_multicam_frame, or `cams` = (rig, geometry
+    camera)) and map_reuse (the map saved at 3/5 of the run and loaded
+    into a fresh System, which must relocalize against it).
     Returns a dict of the system (and the front end), the states, the
     ATEs, the launches counted and the host seconds spent inside the
     relocalization calls, inside loop_closer.process_keyframe and inside
     its candidate verification (_try_close), the inputs of the last
-    recovery frame, the state before the first closure, and the frame
-    where the VI initialization took.  `profile` = (first, last) runs
-    those frames under torch.profiler, returned with their wall
-    seconds.  `async_mapping` (default: the stereo_async row only) and
-    `vio_cfg` (VioConfig fields over the rows') vary the row; the threads
-    that ran the VIO window BA are returned."""
+    recovery frame, the state before the first closure, the frame where
+    the VI initialization took, the frames the encoder fused, the rig's
+    per-view triangulation stats a frame and the ms of save_map and
+    load_map.  `profile` = (first, last) runs those frames under
+    torch.profiler, returned with their wall seconds.  `async_mapping`
+    (default: the stereo_async row only) and `vio_cfg` (VioConfig fields
+    over the rows') vary the row; the threads that ran the VIO window BA
+    are returned."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -839,14 +1067,23 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
     from vieo_slam_tpu_torch.sim import world as sim
     from vieo_slam_tpu_torch.system import System, SystemConfig
     from vieo_slam_tpu_torch.utils.metrics import metrics
+    from vieo_slam_tpu_torch.vio.encoder_frontend import (
+        EncoderConfig, EncoderFrontend)
     from vieo_slam_tpu_torch.vio.frontend import VioConfig, VioFrontend
 
     loop = row.endswith("_loop")
-    vio = row in ("stereo_vio", "vio_blackout", "vio_loop")
+    vio = row in ("stereo_vio", "vio_blackout", "vio_loop", "vieo")
+    veo = row.startswith("veo")
+    multicam = row.startswith("multicam")
     n = 2 * LOOP_FRAMES_PER_LAP if loop else 60
-    s = width / 640.0
-    cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0, width,
-                          480)
+    reuse_at = 3 * n // 5 if row == "map_reuse" else -1
+    if multicam:
+        rig, cam = cams or rig_cameras(width, 4 if row == "multicam4_kb8"
+                                       else 2)
+    else:
+        s = width / 640.0
+        cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0,
+                              width, 480)
     bf = cam.fx * BASELINE
     ts = np.arange(n) * 0.1
     if loop:
@@ -867,21 +1104,47 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
     metrics.reset()
     if async_mapping is None:
         async_mapping = row == "stereo_async"
-    system = System(cam, bf, SystemConfig(
-        tracker=TrackerConfig(use_predicted_scale=True),
-        async_mapping=async_mapping), device=dev)
-    system.loop_closer = LoopCloser(
-        cam, bf, system.map,
-        LoopClosingConfig(min_kf_gap=30 if loop else 8, fix_scale=True),
-        device=dev)
-    front, imu = system, None
+
+    def new_system():
+        system = System(cam, bf, SystemConfig(
+            tracker=TrackerConfig(use_predicted_scale=True),
+            async_mapping=async_mapping), device=dev)
+        system.loop_closer = LoopCloser(
+            cam, bf, system.map,
+            LoopClosingConfig(min_kf_gap=30 if loop else 8, fix_scale=True),
+            device=dev)
+        return system
+
+    system = new_system()
+    front, imu, enc = system, None, None
+    if veo or row == "vieo":
+        Rbe = encoder_extrinsic(Rwc, v_w)
+        enc = sim.make_encoder_samples(
+            ts, Rwc.astype(np.float64), twc.astype(np.float64), Rbe,
+            np.zeros(3), rate_hz=100.0, half_track=0.28, noise_v=2e-3,
+            seed=seed + 200)
+        enc_cfg = dict(enc_half_track=0.28, enc_sigma_v=5e-3, enc_Rbe=Rbe,
+                       enc_tbe=np.zeros(3))
+    if veo:
+        front = EncoderFrontend(system, cfg=EncoderConfig(**enc_cfg))
     if vio:
         imu = sim.make_imu_samples(ts, Rwc.astype(np.float64), v_w, a_w,
                                    rate_hz=200.0, bg=VIO_BG, ba=VIO_BA,
                                    noise_g=1e-4, noise_a=1e-3,
                                    seed=seed + 100)
         front = VioFrontend(system, cfg=VioConfig(**{
-            "init_min_kfs": 10, "init_min_span": 3.0, **(vio_cfg or {})}))
+            "init_min_kfs": 10, "init_min_span": 3.0,
+            **(dict(use_encoder=True, **enc_cfg) if enc else {}),
+            **(vio_cfg or {})}))
+    fused_at = []
+    if veo:
+        fuse = front._fuse
+
+        def fuse_counted(frame):
+            fused_at.append(len(states))
+            return fuse(frame)
+
+        front._fuse = fuse_counted
     window_ba_threads = []
     if vio:
         step = front._backend_worker_step
@@ -893,9 +1156,14 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
         front._backend_worker_step = worker_step
 
     def kf_ate(t_min=-1.0):
+        """Keyframe ATE of the keyframes after t_min, their timestamps
+        rounded to f32 as evaluate_ntimes.py keeps them (x64 off) and
+        compared in f64 (a Python float beside an f32 array would be
+        rounded to f32 too)."""
         m = system.map
         kfs = m.keyframe_ids()
-        kfs = kfs[m.kf_timestamp[kfs] > t_min]
+        t_kf = m.kf_timestamp[kfs].astype(np.float32).astype(np.float64)
+        kfs = kfs[t_kf > t_min]
         if len(kfs) < 2:        # as evaluate_ntimes.py
             return float("nan")
         p = np.stack([-(m.kf_Rcw[k].T @ m.kf_tcw[k]) for k in kfs])
@@ -922,59 +1190,96 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
 
     reloc_orig = relocalization.try_relocalize
     relocalization.try_relocalize = counted("reloc", reloc_orig)
-    lc = system.loop_closer
-    lc.process_keyframe = counted("loop", lc.process_keyframe)
-    lc._try_close = counted("verify", lc._try_close)
     # The ATE around each closure, and the state before the first one, to
     # replay it under the profiler.  _try_close changes nothing before it
     # calls _correct_loop, so the copy taken here is the state its call
     # started from.  This hook runs inside the loop-closing stage timer:
     # its own seconds are kept and taken out of the times reported.
     closures, replay, hook_s = [], {}, []
-    correct_orig = lc._correct_loop
 
-    def correct_hooked(k, c, S_ck):
-        t0 = time.perf_counter()
-        if not replay:
-            replay.update(k=k, c=c, state=(
-                system.map.copy(), lc.db.bows.copy(), lc.db.present.copy(),
-                dict(lc.kf_bow), lc.last_loop_kf, list(lc.loop_edges)))
-        pre = kf_ate()
-        dt = time.perf_counter() - t0
-        correct_orig(k, c, S_ck)
-        t0 = time.perf_counter()
-        closures.append((k, c, pre, kf_ate()))
-        hook_s.append(dt + time.perf_counter() - t0)
+    def instrument(lc):
+        lc.process_keyframe = counted("loop", lc.process_keyframe)
+        lc._try_close = counted("verify", lc._try_close)
+        correct_orig = lc._correct_loop
 
-    lc._correct_loop = correct_hooked
+        def correct_hooked(k, c, S_ck):
+            t0 = time.perf_counter()
+            if not replay:
+                replay.update(k=k, c=c, state=(
+                    system.map.copy(), lc.db.bows.copy(),
+                    lc.db.present.copy(), dict(lc.kf_bow), lc.last_loop_kf,
+                    list(lc.loop_edges)))
+            pre = kf_ate()
+            dt = time.perf_counter() - t0
+            correct_orig(k, c, S_ck)
+            t0 = time.perf_counter()
+            closures.append((k, c, pre, kf_ate()))
+            hook_s.append(dt + time.perf_counter() - t0)
+
+        lc._correct_loop = correct_hooked
+
+    instrument(system.loop_closer)
     states, frame_s, recovered_at, last_frame = [], [], None, None
-    init_at, i_imu = None, 0
+    init_at, i_imu, i_enc, view_stats, reuse_ms = None, 0, 0, [], {}
     prof, prof_s, profiled = None, 0.0, None
     t_run = time.perf_counter()
     try:
         for i in range(n):
             t = float(ts[i])
+            if i == reuse_at:
+                # Map reuse: save the map, then a fresh System and
+                # LoopCloser load it and go on.
+                fd, path = tempfile.mkstemp(suffix=".npz")
+                os.close(fd)
+                t0 = time.perf_counter()
+                system.save_map(path)
+                reuse_ms["save_map"] = 1e3 * (time.perf_counter() - t0)
+                system.shutdown()
+                system = front = new_system()
+                instrument(system.loop_closer)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                system.load_map(path)
+                torch.cuda.synchronize()
+                reuse_ms["load_map"] = 1e3 * (time.perf_counter() - t0)
+                os.unlink(path)
             if imu is not None:
                 while i_imu < len(imu[0]) and imu[0][i_imu] <= t:
                     front.track_odom(imu[0][i_imu], imu[1][i_imu],
                                      imu[2][i_imu])
                     i_imu += 1
+            if enc is not None:
+                while i_enc < len(enc[0]) and enc[0][i_enc] <= t:
+                    front.track_encoder(enc[0][i_enc], enc[1][i_enc],
+                                        enc[2][i_enc])
+                    i_enc += 1
             g, b = gain_bias(t)
-            left, right = world.render_stereo(
-                cam, Rcw[i], tcw[i], BASELINE, t=t, noise_sigma=NOISE_SIGMA,
-                gain=g, bias=b, rng=rng)
+            hard = dict(t=t, noise_sigma=NOISE_SIGMA, gain=g, bias=b, rng=rng)
+            if multicam:
+                images = [world.render_view(c, c.Rcr @ Rcw[i],
+                                            c.Rcr @ tcw[i] + c.tcr, **hard)
+                          for c in rig]
+            else:
+                images = world.render_stereo(cam, Rcw[i], tcw[i], BASELINE,
+                                             **hard)
             if bo[0] <= i < bo[1]:
-                left, right = np.zeros_like(left), np.zeros_like(right)
+                images = [np.zeros_like(x) for x in images]
             if profile is not None and i == profile[0]:
                 prof = torch_profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA])
                 prof.__enter__()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            frame = fr.build_stereo_frame(
-                torch.from_numpy(left).to(dev),
-                torch.from_numpy(right).to(dev), cfg, bf=bf, min_depth=0.3,
-                max_depth=15.0, timestamp=t, device=dev)
+            images = [torch.from_numpy(x).to(dev) for x in images]
+            if multicam:
+                frame, pv = fr.build_multicam_frame(
+                    images, rig, cfg, geom_cam=cam, virt_bf=bf,
+                    max_depth=15.0, timestamp=t, return_stats=True,
+                    device=dev)
+            else:
+                frame = fr.build_stereo_frame(
+                    *images, cfg, bf=bf, min_depth=0.3, max_depth=15.0,
+                    timestamp=t, device=dev)
             n_reloc = metrics.counters.get("reloc_success", 0)
             states.append(front.track_frame(frame).name)
             torch.cuda.synchronize()
@@ -986,6 +1291,10 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
                     prof, profiled = None, prof
             if vio and front.inited and init_at is None:
                 init_at = i
+            if multicam:
+                view_stats.append([(float(v["matches"]),
+                                    float(v["accepted"]),
+                                    float(v["mean_err2"])) for v in pv])
             if metrics.counters.get("reloc_success", 0) > n_reloc:
                 if recovered_at is None:
                     recovered_at = i
@@ -1008,11 +1317,13 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
                ate_track=ate(np.asarray([x[0] for x in traj]), poses, ts,
                              twc)["rmse"],
                ate_no_gba=pre_gba, ate_gba=kf_ate(),
-               # The keyframes from the first lit frame on: evaluate_ntimes.py
-               # keeps f32 timestamps (x64 off), so its "> ts[end]" takes
-               # that frame's keyframe in (f32(4.8) > 4.8).
-               ate_post_recovery=kf_ate(float(ts[bo[1]]) - 1e-6)
-               if bo[1] > 0 else None, report=metrics.report(),
+               # As evaluate_ntimes.py: the keyframes after the first lit
+               # frame's time, or after the map was loaded (in f32, the
+               # keyframe of the first lit frame is in: f32(4.8) > 4.8).
+               ate_post_recovery=kf_ate(float(ts[bo[1]])) if bo[1] > 0
+               else kf_ate(float(ts[reuse_at])) if reuse_at > 0 else None,
+               reuse_at=reuse_at, reuse_ms=reuse_ms, fused_at=fused_at,
+               view_stats=np.asarray(view_stats), report=metrics.report(),
                profile=None if profiled is None else
                (profiled, prof_s, profile[1] - profile[0]))
     system.shutdown()
@@ -1158,6 +1469,169 @@ def summarize_profile(prof, wall_s, n_frames, tag="[8 profile]", top=10):
             f" ms/frame {e.count / n_frames:7.1f}x  {e.key[:90]}")
     return dict(ops=launches / n_frames, busy_ms=busy_ms / n_frames,
                 wall_ms=wall_ms)
+
+
+def rig_encoder_reuse_phases(torch, dev, launches_place, stereo_vio_ate):
+    """Phases 16-20: the KB8 rigs of 2 and 4 cameras, VEO through a
+    blackout, VIEO and map reuse, each at full width with its launches
+    counted into `launches_place`.  Returns the rig kernel cases of phase
+    17 (B1/B2 over 32 entries, B3 under the epipolar masks)."""
+    from vieo_slam_tpu_torch.ops import cuda_build
+
+    vio_path = ("fast_nms_blend", "gather_patches", "fused_best2",
+                "fused_projection_best2")
+    # 16-17. the distorted KB8 rigs of 2 and 4 cameras
+    rig_kernels = {}
+    for phase, row, n_cams in ((16, "multicam_kb8", 2),
+                               (17, "multicam4_kb8", 4)):
+        tag = f"[{phase} {row}, seed 0]"
+        cams = rig_cameras(752, n_cams)
+        if n_cams == 2:
+            cams = rig_from_yaml(cams)
+            log(f"{tag} the rig parsed from a TUM-VI-style YAML by "
+                f"io.config equals the row's rig")
+        cuda_build.reset_launches()
+        out = run_row(torch, dev, row, 0, cams=cams)
+        launches_place[row, None] = dict(cuda_build.LAUNCHES)
+        system, states, vs = out["system"], out["states"], out["view_stats"]
+        tri = vs[:, :, 1].mean(0)
+        err2 = [float(np.nanmean(np.where(vs[:, v, 1] > 0, vs[:, v, 2],
+                                          np.nan)))
+                for v in range(vs.shape[1])]
+        n = out["n"]
+        log(f"{tag} {n} frames 752x480 x {n_cams} KB8 cameras, 1200 "
+            f"features, 8 levels: LOST {states.count('LOST')}; keyframe ATE "
+            f"without / with the final GBA {out['ate_no_gba']:.5f} / "
+            f"{out['ate_gba']:.5f} m; triangulations a frame by view "
+            f"{[round(float(x), 2) for x in tri]}, mean_err2 "
+            f"{[round(x, 4) for x in err2]} (the 640x480 row: view 1 218.15 "
+            f"/ 0.2582{', views 2-3 109.82 / 0.715, 38.91 / 0.2544' if n_cams == 4 else ''}); "
+            f"{system.map.n_keyframes()} keyframes, "
+            f"{system.map.n_landmarks()} landmarks; launches "
+            f"{launches_place[row, None]} ({out['run_s']:.1f} s)")
+        log(f"{tag} ms: frame median {1e3 * np.median(out['frame_s']):.2f}; "
+            f"(count, mean, total) " + ", ".join(
+                f"{k} {stage_ms(out['report'], k)}" for k in (
+                    "track", "local_mapping", "loop_closing", "frame")))
+        check_counts(row, launches_place[row, None],
+                     {"fast_nms_blend": n, "gather_patches": n,
+                      "tail_fused": 0}, vio_path)
+        if launches_place[row, None]["fused_best2"] < (n_cams - 1) * n:
+            fail(f"{row}: B3 launched fewer than {n_cams - 1} times a frame")
+        if states.count("LOST") or not out["ate_no_gba"] < 0.02 \
+                or not (vs[:, 0, 1] > 0).all():
+            fail(f"{row} misses its bars")
+        if n_cams == 4:
+            images = rig_images(cams[0])
+            from vieo_slam_tpu_torch.ops import orb
+            rig_kernels = check_rig_kernels(
+                torch, dev, cams[0], images,
+                orb.OrbConfig(n_features=1200, n_levels=8))
+            for case, r in rig_kernels.items():
+                on_card = "not measured" if r["device_ms"] is None \
+                    else f"{r['device_ms']:.4f} ms"
+                log(f"{tag} {case}: equal to its plain version, "
+                    f"{r['ms']:.4f} ms a call, {on_card} in the kernel "
+                    f"(plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound'][0]:.4f} ms by {r['bound'][1]})"
+                    + (f", {r['candidates']} candidates, {r['matched']} rows "
+                       f"matched" if "candidates" in r else ""))
+        system.shutdown()
+
+    # 18. VEO with the blackout's black frames: the wheel encoder carries
+    # the pose through them
+    tag = "[18 veo_blackout, seed 0]"
+    cuda_build.reset_launches()
+    out = run_row(torch, dev, "veo_blackout", 0)
+    launches_place["veo_blackout", None] = dict(cuda_build.LAUNCHES)
+    system, veo, states = out["system"], out["front"], out["states"]
+    b0, b1 = out["bo"]
+    black = states[b0:b1]
+    ok_frames = [i for i in range(1, out["n"]) if states[i] == "OK"]
+    n_reloc = out["report"]["counters"].get("reloc_success", 0)
+    log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels, frames "
+        f"{b0}-{b1 - 1} black: LOST {states.count('LOST')}, "
+        f"{black.count('ODOMOK')} black frames ODOMOK, relocalizations "
+        f"{n_reloc}; fused {len(out['fused_at'])} frames, the first "
+        f"{out['fused_at'][:1]}, of {len(ok_frames)} OK frames after the "
+        f"first; keyframe ATE {out['ate_no_gba']:.5f} m, after the recovery "
+        f"{out['ate_post_recovery']:.5f} m; launches "
+        f"{launches_place['veo_blackout', None]} ({out['run_s']:.1f} s)")
+    log(f"{tag} ms: (count, mean, total) " + ", ".join(
+        f"{k} {stage_ms(out['report'], k)}" for k in (
+            "veo.predict", "veo.fuse", "track", "local_mapping", "frame")))
+    check_counts("veo_blackout", launches_place["veo_blackout", None],
+                 {"tail_fused": 0}, vio_path)
+    check_graphs(torch, tag, [("the prior-augmented motion solve", g)
+                              for g in veo._fused.graphs.values()])
+    if states.count("LOST") or black.count("ODOMOK") != len(black) \
+            or n_reloc or out["fused_at"] != ok_frames \
+            or out["fused_at"][:1] != [1] \
+            or not out["ate_post_recovery"] < 0.02:
+        fail("veo_blackout misses its bars")
+
+    # 19. VIEO: stereo_vio with the wheel encoder in the fused solve
+    tag = "[19 vieo, seed 0]"
+    cuda_build.reset_launches()
+    out = run_row(torch, dev, "vieo", 0)
+    launches_place["vieo", None] = dict(cuda_build.LAUNCHES)
+    vio, states = out["front"], out["states"]
+    after = 1e3 * np.asarray(out["frame_s"][(out["init_at"] or 0) + 1:])
+    log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels: VI init "
+        f"at frame {out['init_at']}, |g| {np.linalg.norm(vio.gw):.4f}, bg "
+        f"{vio.bg} (true {VIO_BG}); LOST {states.count('LOST')}; keyframe "
+        f"ATE {out['ate_no_gba']:.5f} m (phase 12, stereo_vio: "
+        f"{stereo_vio_ate:.5f} m); {vio.enc_ring.size()} wheel "
+        f"samples; whole frame after the init median "
+        f"{np.median(after) if after.size else float('nan'):.2f} ms; "
+        f"launches {launches_place['vieo', None]} ({out['run_s']:.1f} s)")
+    log(f"{tag} ms: (count, mean, total) " + ", ".join(
+        f"{k} {stage_ms(out['report'], k)}" for k in (
+            "vio.preintegrate", "vio.fuse", "vio.init", "track", "frame")))
+    check_counts("vieo", launches_place["vieo", None], {"tail_fused": 0},
+                 vio_path)
+    check_graphs(torch, tag, [
+        ("the fused solve with the encoder factor", g)
+        for g in vio._fused.graphs.values()]
+        + [(f"the preintegration of {g.inputs[0].shape[0]} samples", g)
+           for g in list(vio._preint.graphs.values())[:1]])
+    if not vio.inited or abs(np.linalg.norm(vio.gw) - 9.81) > 0.05 \
+            or np.abs(vio.bg - VIO_BG).max() > 1.2e-2 \
+            or states.count("LOST") or not out["ate_no_gba"] < 0.02:
+        fail("vieo misses its bars")
+
+    # 20. map reuse: save at 3/5 of the run, load into a fresh System
+    tag = "[20 map_reuse, seed 0]"
+    cuda_build.reset_launches()
+    out = run_row(torch, dev, "map_reuse", 0)
+    launches_place["map_reuse", None] = dict(cuda_build.LAUNCHES)
+    system, states = out["system"], out["states"]
+    at, rec = out["reuse_at"], out["recovered_at"]
+    n_reloc = out["report"]["counters"].get("reloc_success", 0)
+    lost_after = None if rec is None else states[rec:].count("LOST")
+    log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels, the map "
+        f"saved and loaded into a fresh System at frame {at}: "
+        f"relocalized at frame {rec} ({n_reloc} relocalizations), LOST "
+        f"after it {lost_after}; keyframe ATE after the recovery "
+        f"{out['ate_post_recovery']:.5f} m, whole run without / with the "
+        f"final GBA {out['ate_no_gba']:.5f} / {out['ate_gba']:.5f} m; "
+        f"save_map {out['reuse_ms']['save_map']:.2f} ms, load_map "
+        f"{out['reuse_ms']['load_map']:.2f} ms; {system.map.n_keyframes()} "
+        f"keyframes; launches {launches_place['map_reuse', None]}, inside "
+        f"the relocalization calls {out['inside']['reloc']} "
+        f"({out['run_s']:.1f} s)")
+    check_counts("map_reuse", launches_place["map_reuse", None],
+                 {"fast_nms_blend": out["n"], "gather_patches": out["n"],
+                  "tail_fused": 0}, vio_path)
+    if rec is None or not at <= rec < at + 3 or lost_after \
+            or not out["ate_post_recovery"] < 0.02:
+        fail("map_reuse misses its bars")
+    if not (out["inside"]["reloc"].get("fused_best2", 0) > 0
+            and out["inside"]["reloc"].get("fused_projection_best2", 0) > 0):
+        fail(f"the relocalization after load_map did not launch B3 and B4: "
+             f"{out['inside']['reloc']}")
+
+    return rig_kernels
 
 
 def main():
@@ -1596,21 +2070,28 @@ def main():
             or not out["ate_no_gba"] < 0.02:
         fail("stereo_vio async misses its bars")
 
+    # 16-20. distorted rigs, wheel encoder, map reuse
+    rig_kernels = rig_encoder_reuse_phases(torch, dev, launches_place,
+                                           vio_ate["stereo_vio"])
+
     meta = {
-        "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99"),
-        "gather_patches": ("gather.cu", "vieo_slam_tpu/ops/pallas_gather.py:73"),
+        "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99",
+                           "B1"),
+        "gather_patches": ("gather.cu", "vieo_slam_tpu/ops/pallas_gather.py:73",
+                           "B2"),
         "fused_best2": ("matching.cu",
-                        "vieo_slam_tpu/ops/pallas_matching.py:246"),
+                        "vieo_slam_tpu/ops/pallas_matching.py:246", "B3"),
         "fused_projection_best2": (
-            "matching.cu", "vieo_slam_tpu/ops/pallas_matching.py:166"),
-        "tail_fused": ("tail.cu", "vieo_slam_tpu/ops/pallas_tail.py:180"),
+            "matching.cu", "vieo_slam_tpu/ops/pallas_matching.py:166", "B4"),
+        "tail_fused": ("tail.cu", "vieo_slam_tpu/ops/pallas_tail.py:180",
+                       "B5"),
     }
     # `launches`: B1-B4 as counted over the stereo full-width run, B5 over
     # the RGB-D full-width run (the stereo run keeps the default tail);
     # `launches_by_path` has every counted run.  Phases 9 and 10 are the
     # place-recognition path's counted runs.
     kernels = []
-    for k, (src, replaces) in meta.items():
+    for k, (src, replaces, _) in meta.items():
         r = rows[k]
         by_path = {"stereo_full_width": launches[k],
                    "rgbd_full_width": launches_rgbd[k],
@@ -1629,8 +2110,10 @@ def main():
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
             "device_ms": r["device_ms"],
             **{x: r[x] for x in ("pair_ms", "pair_device_ms", "candidates",
-                                 "survivors", "corners") if x in r}})
-    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+                                 "survivors", "corners") if x in r},
+            "rig": {case: r for case, r in rig_kernels.items()
+                    if case.split()[0] == meta[k][2]}})
+    log(f"[done] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

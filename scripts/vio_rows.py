@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Run the port's async-mapping and VIO rows on one GPU and hold their
-means against the JAX package's ACCURACY_r05.json.
+"""Run the port's async-mapping, VIO, encoder, multi-camera and map-reuse
+rows on one GPU and hold their means against the JAX package's
+ACCURACY_r05.json.
 
     python3 scripts/vio_rows.py [--width 640 --features 600 --levels 4]
         [--rows stereo_async,stereo_vio,vio_blackout,vio_loop]
         [--seeds 11,18,25] [--out FILE]
 
+    python3 scripts/vio_rows.py \
+        --rows veo,vieo,multicam_kb8,multicam4_kb8,map_reuse
+
 The rows are examples/evaluate_ntimes.py's, built by chip_smoke.run_row
-(phases 11-14 of chip_smoke.py run them at 752x480, 1200 features, 8
+(phases 11-20 of chip_smoke.py run them at 752x480, 1200 features, 8
 levels); the defaults are the JAX package's own row configuration and
 seeds (seed0 11 + 7 i).  Each row reports what evaluate_ntimes.py does:
 the keyframe ATE without and with the final global BA, the LOST, ODOMOK
 and relocalization counts and the keyframe ATE after the recovery
-(blackout), the loops closed, the fused points and the keyframe ATE
-before and after the first closure (loop).  A mean agrees with the
-reference when its ATEs are within 30 % or 1 mm of it (whichever is
-larger) and its counts within one.  Prints the card's name and power
-limit first; with --out, writes every run's numbers there as JSON.
+(blackout, map reuse), the loops closed, the fused points and the keyframe
+ATE before and after the first closure (loop), and each partner view's
+triangulations a frame and mean squared two-view error (multi-camera).  A
+mean agrees with the reference when its ATEs are within 30 % or 1 mm of it
+(whichever is larger), its triangulation counts within 30 % and its other
+counts within one.  Prints the card's name and power limit first; with
+--out, writes every run's numbers there as JSON.
 """
 
 from __future__ import annotations
@@ -37,16 +43,22 @@ import chip_smoke  # noqa: E402
 ATE_KEYS = ("rmse_noFullBA", "rmse_fullBA", "rmse_postRecovery",
             "rmse_preLC", "rmse_postLC")
 COUNT_KEYS = ("n_lost", "n_odomok", "n_relocs", "loops_closed")
+TRI_KEYS = tuple(f"view{v}_tri_per_frame" for v in (1, 2, 3))
 
 
 def row_numbers(row, out) -> dict:
     """evaluate_ntimes.py's numbers of one run."""
     c = out["report"]["counters"]
     r = {"rmse_noFullBA": out["ate_no_gba"], "rmse_fullBA": out["ate_gba"]}
-    if row.endswith("_blackout"):
+    if row.endswith("_blackout") or row == "map_reuse":
         r.update(n_lost=c.get("state_LOST", 0), n_odomok=c.get(
             "state_ODOMOK", 0), n_relocs=c.get("reloc_success", 0),
             rmse_postRecovery=out["ate_post_recovery"])
+    vs = out["view_stats"]
+    for v in range(vs.shape[1] if vs.ndim == 3 else 0):
+        r[f"view{v + 1}_tri_per_frame"] = vs[:, v, 1].mean()
+        r[f"view{v + 1}_mean_err2"] = np.nanmean(
+            np.where(vs[:, v, 1] > 0, vs[:, v, 2], np.nan))
     if row.endswith("_loop"):
         lc = out["system"].loop_closer
         first = out["closures"][0] if out["closures"] else (0, 0, np.nan,
@@ -68,6 +80,8 @@ def verdict(mean: dict, ref: dict) -> list:
             continue
         if k in ATE_KEYS:
             ok = abs(v - want) <= max(0.3 * want, 1e-3)
+        elif k in TRI_KEYS:
+            ok = abs(v - want) <= 0.3 * want
         elif k in COUNT_KEYS:
             ok = abs(v - want) <= 1.0
         else:

@@ -28,7 +28,9 @@ from .math.navstate import NavState
 from .math.preintegration import ImuPreint
 from .ops.orb import OrbConfig
 from .solvers.initializer import MonoInitResult
+from .io.config import SlamSettings
 from .system import SensorMode, SystemConfig
+from .vio.encoder_frontend import EncoderConfig, EncoderFrontend
 from .vio.frontend import VioConfig, VioFrontend
 
 _MAP_ARRAYS = (
@@ -41,14 +43,18 @@ _MAP_ARRAYS = (
 
 
 def camera_from_jax(jcam) -> cm.Camera:
-    """A pinhole Camera from the JAX package's Camera (numpy leaves)."""
-    if int(jcam.kind) != cm.PINHOLE:
-        raise NotImplementedError("only pinhole cameras are ported")
-    return cm.make_pinhole(
+    """The port's Camera (pinhole, radtan or KB8) from the JAX package's
+    Camera (numpy leaves)."""
+    kind = int(jcam.kind)
+    if kind not in (cm.PINHOLE, cm.RADTAN, cm.KB8):
+        raise ValueError(f"unknown camera kind {kind}")
+    cam = cm.make_pinhole(
         float(np.asarray(jcam.fx)), float(np.asarray(jcam.fy)),
         float(np.asarray(jcam.cx)), float(np.asarray(jcam.cy)),
         jcam.width, jcam.height, Rcr=np.asarray(jcam.Rcr),
         tcr=np.asarray(jcam.tcr))
+    return cam._replace(kind=kind,
+                        dist=np.array(np.asarray(jcam.dist), np.float32))
 
 
 def orb_config_from_jax(jcfg) -> OrbConfig:
@@ -210,3 +216,39 @@ def vio_frontend_from_jax(jvio, system) -> VioFrontend:
     if jvio.sys.mapper.vio_active:
         system.mapper.vio_active = True
     return vio
+
+
+def encoder_config_from_jax(jcfg) -> EncoderConfig:
+    return EncoderConfig(**{f.name: getattr(jcfg, f.name)
+                            for f in dataclasses.fields(EncoderConfig)})
+
+
+def encoder_frontend_from_jax(jveo, system) -> EncoderFrontend:
+    """The port's EncoderFrontend over `system` (a port System) in the JAX
+    front end's state: extrinsics, configuration, the last frame time and
+    body pose, and the wheel samples of its ring (read from the JAX ring's
+    numpy fallback, pushed in order into the port's native ring)."""
+    veo = EncoderFrontend(system, Rcb=np.asarray(jveo.Rcb),
+                          tcb=np.asarray(jveo.tcb),
+                          cfg=encoder_config_from_jax(jveo.cfg))
+    ring = odom_ring_from_jax(jveo.enc_ring)
+    n = ring.size()
+    idx = np.arange(ring._n - n, ring._n) % ring.capacity
+    veo.enc_ring.push_bulk(ring._t[idx], ring._v[idx])
+    veo.last_t = jveo.last_t
+    veo._last_body = None if jveo._last_body is None else tuple(
+        np.array(x, np.float32) for x in jveo._last_body)
+    return veo
+
+
+def slam_settings_from_jax(js) -> SlamSettings:
+    """The port's SlamSettings with the JAX package's values."""
+    kw = {f.name: getattr(js, f.name)
+          for f in dataclasses.fields(SlamSettings)}
+    for name in ("Tbc", "Tbe"):
+        if kw[name] is not None:
+            kw[name] = np.array(kw[name], np.float32)
+    if kw["cam2"] is not None:
+        kw["cam2"] = dict(kw["cam2"], Trc=np.array(kw["cam2"]["Trc"],
+                                                   np.float32))
+    return SlamSettings(**kw)

@@ -1,52 +1,41 @@
-"""Timestamped odometry ring buffer with windowed extraction.
+"""Timestamped odometry ring buffers with windowed extraction.
 
-Numpy copy of the fallback path of vieo_slam_tpu/native/__init__.py
-OdomRing (the port keeps its own copy so that it never imports the JAX
-package): 6-channel samples keyed by time; `window` cuts the padded
-sample window covering (t0, t1] that the preintegrations consume, and
-`window_filled` holds the last sample over a late tail.  The native C++
-ring of that package is not built here.
+Two rings with one interface, 6-channel samples keyed by time: `window`
+cuts the padded sample window covering (t0, t1] that the preintegrations
+consume, and `window_filled` holds the last sample over a late tail.
+
+- `NativeOdomRing` is the ring the VIO and encoder front ends use: the
+  C++ ring of csrc/odom_buffer.cc (the JAX package's native ring, copied),
+  compiled with g++ at first use into vieo_slam_tpu_torch/_build/ and
+  bound with ctypes.  A failed build raises; nothing falls back.
+- `OdomRing` is its plain numpy version (the JAX package's fallback path,
+  copied), which a caller or a test selects explicitly; it equals the
+  native ring window for window.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
 import threading
 import time
+import weakref
 
 import numpy as np
 
+from ..ops.cuda_build import BUILD_DIR, CSRC
 
-class OdomRing:
-    """Timestamped 6-channel sample ring.  Pushes and reads may come from
-    different threads (a live feeder and the tracker): both hold a lock."""
+_NATIVE_SRC = CSRC / "odom_buffer.cc"
+_GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+_native_lock = threading.Lock()
+_native = None
 
-    def __init__(self, capacity: int = 1 << 16):
-        self.capacity = capacity
-        self._t = np.zeros(capacity, np.float64)
-        self._v = np.zeros((capacity, 6), np.float32)
-        self._n = 0
-        self._lock = threading.Lock()
 
-    def push(self, t: float, v6):
-        v6 = np.asarray(v6, np.float32)
-        with self._lock:
-            self._t[self._n % self.capacity] = t
-            self._v[self._n % self.capacity] = v6
-            self._n += 1
-
-    def push_bulk(self, ts, v6s):
-        for t, v in zip(np.asarray(ts, np.float64),
-                        np.asarray(v6s, np.float32)):
-            self.push(t, v)
-
-    def size(self) -> int:
-        return min(self._n, self.capacity)
-
-    def latest_time(self) -> float:
-        with self._lock:
-            if self._n == 0:
-                return -1.0
-            return float(self._t[(self._n - 1) % self.capacity])
+class _RingWindows:
+    """What both rings share on top of `latest_time` and `window`."""
 
     def wait_until(self, t_target: float, timeout: float,
                    poll_s: float = 0.001) -> bool:
@@ -81,6 +70,126 @@ class OdomRing:
             mask[rows] = True
             return vals, dts, mask, n + 1, float(held)
         return vals, dts, mask, n, 0.0
+
+
+def _native_lib() -> ctypes.CDLL:
+    """The native ring's library, compiled at first use (named by a hash
+    of source and flags).  Raises RuntimeError when g++ is missing or the
+    build fails."""
+    global _native
+    with _native_lock:
+        if _native is not None:
+            return _native
+        h = hashlib.sha1(_NATIVE_SRC.read_bytes()
+                         + " ".join(_GXX_FLAGS).encode()).hexdigest()[:12]
+        target = BUILD_DIR / f"odom_buffer_{h}.so"
+        if not target.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found: the native odometry ring "
+                                   "is built from csrc/odom_buffer.cc")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            out = subprocess.run([gxx, *_GXX_FLAGS, "-o", str(tmp),
+                                  str(_NATIVE_SRC)], capture_output=True,
+                                 text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"g++ failed for odom_buffer.cc (rc "
+                                   f"{out.returncode}):\n{out.stderr}")
+            tmp.replace(target)
+        lib = ctypes.CDLL(str(target))
+        f32 = np.ctypeslib.ndpointer(np.float32, flags="C")
+        f64 = np.ctypeslib.ndpointer(np.float64, flags="C")
+        u8 = np.ctypeslib.ndpointer(np.uint8, flags="C")
+        P, I64, D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        for name, args, res in (
+                ("odom_ring_create", [I64], P),
+                ("odom_ring_destroy", [P], None),
+                ("odom_ring_push", [P, D, f32], None),
+                ("odom_ring_push_bulk", [P, f64, f32, I64], None),
+                ("odom_ring_size", [P], I64),
+                ("odom_ring_latest_time", [P], D),
+                ("odom_ring_window", [P, D, D, I64, f32, f32, u8], I64)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        _native = lib
+        return lib
+
+
+class NativeOdomRing(_RingWindows):
+    """The C++ ring (csrc/odom_buffer.cc): one producer (a live feeder or
+    the caller) and readers on other threads."""
+
+    native = True
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.capacity = int(capacity)
+        self._lib = _native_lib()
+        self._h = self._lib.odom_ring_create(self.capacity)
+        if not self._h:
+            raise MemoryError("odom_ring_create failed")
+        self._free = weakref.finalize(self, self._lib.odom_ring_destroy,
+                                      self._h)
+
+    def push(self, t: float, v6):
+        v6 = np.ascontiguousarray(v6, np.float32).reshape(6)
+        self._lib.odom_ring_push(self._h, float(t), v6)
+
+    def push_bulk(self, ts, v6s):
+        ts = np.ascontiguousarray(ts, np.float64).reshape(-1)
+        v6s = np.ascontiguousarray(v6s, np.float32).reshape(len(ts), 6)
+        self._lib.odom_ring_push_bulk(self._h, ts, v6s, len(ts))
+
+    def size(self) -> int:
+        return int(self._lib.odom_ring_size(self._h))
+
+    def latest_time(self) -> float:
+        return float(self._lib.odom_ring_latest_time(self._h))
+
+    def window(self, t0: float, t1: float, cap: int):
+        """Padded window covering (t0, t1]: (vals [cap, 6], dts [cap],
+        mask [cap] bool, n_total); n_total > cap means it did not fit."""
+        vals = np.zeros((cap, 6), np.float32)
+        dts = np.zeros(cap, np.float32)
+        mask = np.zeros(cap, np.uint8)
+        n = int(self._lib.odom_ring_window(self._h, float(t0), float(t1),
+                                           int(cap), vals, dts, mask))
+        return vals, dts, mask.astype(bool), n
+
+
+class OdomRing(_RingWindows):
+    """The plain numpy ring.  Pushes and reads may come from different
+    threads (a live feeder and the tracker): both hold a lock."""
+
+    native = False
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.capacity = capacity
+        self._t = np.zeros(capacity, np.float64)
+        self._v = np.zeros((capacity, 6), np.float32)
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def push(self, t: float, v6):
+        v6 = np.asarray(v6, np.float32)
+        with self._lock:
+            self._t[self._n % self.capacity] = t
+            self._v[self._n % self.capacity] = v6
+            self._n += 1
+
+    def push_bulk(self, ts, v6s):
+        for t, v in zip(np.asarray(ts, np.float64),
+                        np.asarray(v6s, np.float32)):
+            self.push(t, v)
+
+    def size(self) -> int:
+        return min(self._n, self.capacity)
+
+    def latest_time(self) -> float:
+        with self._lock:
+            if self._n == 0:
+                return -1.0
+            return float(self._t[(self._n - 1) % self.capacity])
 
     def window(self, t0: float, t1: float, cap: int):
         """Padded window covering (t0, t1]: (vals [cap, 6], dts [cap],

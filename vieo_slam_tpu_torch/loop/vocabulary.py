@@ -1,7 +1,9 @@
 """Binary-descriptor vocabulary: hierarchical k-medians bag of words.
 
-Port of vieo_slam_tpu/loop/vocabulary.py (the online-trained vocabulary
-the loop closer uses; DBoW2 file I/O comes with the I/O slice).  Training
+Port of vieo_slam_tpu/loop/vocabulary.py: the online-trained vocabulary
+the loop closer uses, and the DBoW2 text and binary vocabulary files
+(ORBvoc.txt / ORBvoc.bin), read into and written from the dense
+level-major tree (numpy, copied).  Training
 is numpy, copied so that the same descriptors and seed give the same tree
 bit for bit.  BoW vectors are dense [n_words] and scored with one batched
 L1 reduction.  The tree descent (`transform`) runs on the descriptors'
@@ -139,3 +141,181 @@ def score_l1(bow_q: torch.Tensor, bows: torch.Tensor) -> torch.Tensor:
     """DBoW2 L1 score s = 1 - 0.5 |q - d|_1 of L1-normalized vectors:
     bow_q [W], bows [K, W] -> [K]."""
     return 1.0 - 0.5 * torch.sum(torch.abs(bow_q[None, :] - bows), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# DBoW2/ORBvoc text-format interop (TemplatedVocabulary.h:1196
+# loadFromTextFile / :1339 saveToTextFile): header "k L scoring weighting",
+# then one line per non-root node, ids implied by file order (root = 0):
+#   parent_id is_leaf d0 .. d31 weight
+# ---------------------------------------------------------------------------
+
+
+def save_dbow_text(voc: Vocabulary, path: str):
+    """Write the vocabulary in DBoW2's text format (nodes level-major, so
+    parents always precede children; weights stored on leaves)."""
+    k, L = voc.k, voc.L
+    with open(path, "w") as f:
+        f.write(f"{k} {L} 0 0\n")
+        # file node ids: root 0, then our level-major order shifted by 1.
+        for lv in range(1, L + 1):
+            start, end = voc.level_slice(lv)
+            pstart = voc.level_slice(lv - 1)[0] if lv > 1 else None
+            for i in range(start, end):
+                within = i - start
+                if lv == 1:
+                    pid = 0
+                else:
+                    pid = pstart + within // k + 1   # +1: root shift
+                is_leaf = int(lv == L)
+                dbytes = voc.node_desc[i].view(np.uint8)
+                dstr = " ".join(str(int(b)) for b in dbytes)
+                w = float(voc.idf[i - start]) if is_leaf else 0.0
+                f.write(f"{pid} {is_leaf} {dstr} {w}\n")
+
+
+def load_dbow_text(path: str) -> Vocabulary:
+    """Load a DBoW2/ORBvoc text vocabulary into the dense level-major
+    layout `transform` descends.
+
+    Incomplete branches (internal nodes with fewer than k children —
+    ORBvoc has a few) are padded by duplicating the parent descriptor
+    with weight 0; descent through a padded child terminates in a
+    zero-weight word, matching DBoW2's behavior of never visiting
+    non-existent children."""
+    with open(path) as f:
+        head = f.readline().split()
+        k, L = int(head[0]), int(head[1])
+        parents, weights = [], []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2 + 32 + 1:
+                continue
+            parents.append(int(parts[0]))
+            weights.append(float(parts[-1]))
+    raw = np.loadtxt(path, skiprows=1,
+                     usecols=range(2, 34), dtype=np.uint8, ndmin=2)
+    desc_all = np.ascontiguousarray(raw).view(np.uint32)  # [n, 8]
+    parents = np.asarray(parents, np.int64)
+    weights = np.asarray(weights, np.float32)
+    return _dense_from_tree(k, L, parents, weights, desc_all)
+
+
+def _dense_from_tree(k: int, L: int, parents: np.ndarray,
+                     weights: np.ndarray, desc_all: np.ndarray) -> Vocabulary:
+    """Pack a DBoW2 parent-pointer node list (file node ids 1..n, root 0
+    implicit) into the dense level-major layout. Shared by the text and
+    binary loaders; see `load_dbow_text` for the padded-branch policy."""
+    n = len(parents)
+    children: dict[int, list[int]] = {}
+    for i in range(n):
+        children.setdefault(int(parents[i]), []).append(i + 1)  # ids 1..n
+
+    n_nodes = k * (k ** L - 1) // (k - 1)
+    node_desc = np.zeros((n_nodes, 8), np.uint32)
+    idf = np.zeros(k ** L, np.float32)
+
+    def place(file_id: int, level: int, pos: int):
+        """Recursively place file node at (level, pos) of the dense tree."""
+        start = k * (k ** (level - 1) - 1) // (k - 1)
+        node_desc[start + pos] = desc_all[file_id - 1]
+        if level == L:
+            idf[pos] = weights[file_id - 1]
+            return
+        kids = children.get(file_id, [])
+        for c, kid in enumerate(kids[:k]):
+            place(kid, level + 1, pos * k + c)
+        # Pad missing children with the FIRST REAL SIBLING's descriptor:
+        # the descent's argmin takes the first index on ties and real
+        # children sit before padded ones, so a padded child can never
+        # win — exactly DBoW2's "never visit non-existent children"
+        # (padding with the PARENT's descriptor could out-score every
+        # real child and silently drop the word into a zero-weight leaf).
+        pad_d = desc_all[kids[0] - 1] if kids else desc_all[file_id - 1]
+        for c in range(len(kids), k):
+            _pad(level + 1, pos * k + c, pad_d)
+
+    def _pad(level: int, pos: int, d):
+        start = k * (k ** (level - 1) - 1) // (k - 1)
+        node_desc[start + pos] = d
+        if level == L:
+            idf[pos] = 0.0
+            return
+        for c in range(k):
+            _pad(level + 1, pos * k + c, d)
+
+    roots = children.get(0, [])
+    for c, kid in enumerate(roots[:k]):
+        place(kid, 1, c)
+    root_pad = desc_all[roots[0] - 1] if roots else np.zeros(8, np.uint32)
+    for c in range(len(roots), k):
+        _pad(1, c, root_pad)
+    return Vocabulary(k=k, L=L, node_desc=node_desc, idf=idf)
+
+
+# ---------------------------------------------------------------------------
+# ORBvoc.bin binary-format interop (TemplatedVocabulary.h:1275
+# loadFromBinaryFile / :1360 saveToBinaryFile): header of uint32
+# {nb_nodes, size_node} + int32 {k, L, scoring, weighting}, then one
+# packed 41-byte record per non-root node in file-id order:
+#   int32 parent | 32-byte descriptor | float32 weight | bool is_leaf
+# ---------------------------------------------------------------------------
+
+_BIN_NODE_BYTES = 4 + 32 + 4 + 1
+
+
+def load_vocabulary(path: str) -> Vocabulary:
+    """Load a pretrained DBoW2 vocabulary, dispatching on extension the
+    way the reference's System bootstrap does (src/System.cc: .bin ->
+    loadFromBinaryFile, else loadFromTextFile)."""
+    if path.endswith(".bin"):
+        return load_dbow_binary(path)
+    return load_dbow_text(path)
+
+
+def load_dbow_binary(path: str) -> Vocabulary:
+    """Load an ORBvoc.bin vocabulary (the reference ships/loads this when
+    the path ends in .bin — System.cc vocabulary bootstrap)."""
+    with open(path, "rb") as f:
+        nb_nodes, size_node = np.fromfile(f, np.uint32, 2)
+        k, L, _scoring, _weighting = np.fromfile(f, np.int32, 4)
+        if size_node != _BIN_NODE_BYTES or not (0 < k <= 20) \
+                or not (1 <= L <= 10):
+            raise ValueError(
+                f"not a DBoW2 binary vocabulary: size_node={size_node}, "
+                f"k={k}, L={L}")
+        raw = np.fromfile(f, np.uint8)
+    n = int(nb_nodes) - 1             # records exclude the implicit root
+    raw = raw[: n * _BIN_NODE_BYTES].reshape(n, _BIN_NODE_BYTES)
+    parents = raw[:, :4].copy().view(np.int32).reshape(-1).astype(np.int64)
+    desc_all = np.ascontiguousarray(raw[:, 4:36]).view(np.uint32)
+    weights = raw[:, 36:40].copy().view(np.float32).reshape(-1)
+    return _dense_from_tree(int(k), int(L), parents, weights, desc_all)
+
+
+def save_dbow_binary(voc: Vocabulary, path: str):
+    """Write the vocabulary in DBoW2's binary format (level-major order,
+    parents before children, little-endian packed records)."""
+    k, L = voc.k, voc.L
+    n_nodes = k * (k ** L - 1) // (k - 1)
+    rec = np.zeros((n_nodes, _BIN_NODE_BYTES), np.uint8)
+    row = 0
+    for lv in range(1, L + 1):
+        start, end = voc.level_slice(lv)
+        pstart = voc.level_slice(lv - 1)[0] if lv > 1 else None
+        for i in range(start, end):
+            within = i - start
+            pid = 0 if lv == 1 else pstart + within // k + 1
+            rec[row, :4] = np.frombuffer(
+                np.int32(pid).tobytes(), np.uint8)
+            rec[row, 4:36] = np.frombuffer(
+                voc.node_desc[i].tobytes(), np.uint8)
+            w = float(voc.idf[within]) if lv == L else 0.0
+            rec[row, 36:40] = np.frombuffer(
+                np.float32(w).tobytes(), np.uint8)
+            rec[row, 40] = np.uint8(lv == L)
+            row += 1
+    with open(path, "wb") as f:
+        np.asarray([n_nodes + 1, _BIN_NODE_BYTES], np.uint32).tofile(f)
+        np.asarray([k, L, 0, 0], np.int32).tofile(f)
+        rec.tofile(f)

@@ -192,6 +192,19 @@ def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) [..., 4] -> [..., 3, 3]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    ww, xx, yy, zz = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return torch.stack([
+        torch.stack([ww + xx - yy - zz, 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), ww - xx + yy - zz, 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), ww - xx - yy + zz], -1),
+    ], dim=-2)
+
+
 def se3_exp(xi: torch.Tensor):
     """xi = [rho, phi] [..., 6] -> (R, t)."""
     rho, phi = xi[..., :3], xi[..., 3:]

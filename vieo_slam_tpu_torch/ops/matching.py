@@ -14,6 +14,8 @@ All matchers return fixed-capacity index tensors with -1 for "no match".
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .cuda_matching import INF, best2_plain, fused_best2, fused_projection_best2
@@ -21,6 +23,7 @@ from .cuda_matching import hamming_matrix  # noqa: F401  (re-exported)
 
 TH_LOW = 50
 TH_HIGH = 100
+HISTO_BINS = 30
 
 
 def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
@@ -47,17 +50,34 @@ def _level_lookup(table: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
     return table[level.long().clamp(0, table.shape[0] - 1)]
 
 
+def rotation_consistency_mask(angle_a, angle_b, match_idx, valid):
+    """Keep only the matches whose angle difference falls in the 3 most
+    populated of HISTO_BINS histogram bins (ORBmatcher's rotation
+    histogram); tied bins rank by the lower bin index, as `lax.top_k`
+    ranks them.  Returns bool [Na]."""
+    d = angle_a - angle_b[match_idx.clamp_min(0).long()]
+    frac = torch.remainder(d / (2.0 * math.pi), 1.0)
+    bins = (frac * HISTO_BINS).int().clamp(0, HISTO_BINS - 1).long()
+    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=d.device)
+    hist.index_add_(0, bins, valid.int())
+    top3 = torch.sort(hist, descending=True, stable=True).indices[:3]
+    return valid & (bins[:, None] == top3[None, :]).any(dim=-1)
+
+
 def match_descriptors(desc_a, desc_b, valid_a, valid_b, *,
                       max_dist: int = TH_LOW, ratio: float = 0.9,
-                      extra_mask=None):
-    """Generic one-to-one matcher. Returns (idx [Na] int32 with -1 for
-    unmatched, dist [Na] int32)."""
+                      angle_a=None, angle_b=None, extra_mask=None):
+    """Generic one-to-one matcher; with keypoint angles, matches outside
+    the dominant rotation bins are dropped.  Returns (idx [Na] int32 with
+    -1 for unmatched, dist [Na] int32)."""
     mask = valid_a[:, None] & valid_b[None, :]
     if extra_mask is not None:
         mask = mask & extra_mask
     best_idx, best, second, col_best = _best2(desc_a, desc_b, mask)
     ok = (best <= max_dist) & (best.float() <= ratio * second.float())
     ok = _mutual(col_best, best_idx, ok)
+    if angle_a is not None:
+        ok = rotation_consistency_mask(angle_a, angle_b, best_idx, ok)
     return (torch.where(ok, best_idx, -1).int(),
             torch.where(ok, best, INF).int())
 

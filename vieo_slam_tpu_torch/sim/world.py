@@ -1,10 +1,12 @@
 """Synthetic worlds for end-to-end runs of the image pipeline.
 
-Port of the pixel-rendering part of vieo_slam_tpu/sim/world.py: a field
-of landmarks with fixed texture stamps, rendered through a pinhole camera
-into grayscale views (optionally with a per-pixel depth map, photometric
-noise and brightness drift) and stereo pairs, plus the circle trajectory
-and the IMU stream along a trajectory.
+Port of vieo_slam_tpu/sim/world.py: a field of landmarks with fixed
+texture stamps, rendered through any camera model into grayscale views
+(optionally with a per-pixel depth map, photometric noise and brightness
+drift) and stereo pairs; the feature-level observer (`observe`: a frame's
+keypoints straight from the landmarks, for system runs without images);
+the circle and figure-eight trajectories; and the IMU and wheel-encoder
+streams along a trajectory.
 A fraction of the landmarks may oscillate through the world (dynamic
 scene content).  Numpy, with the port's own `cameras.project`; the same
 seed gives the same world and the same images as the JAX package's
@@ -53,11 +55,11 @@ class SyntheticWorld:
         # same generator, so the same seed gives the same descriptors.
         self.desc = rng.randint(0, 2 ** 32, (n, 8), np.uint64).astype(
             np.uint32)
-        # The JAX world's octave and saliency draws (its feature-level
-        # observer's), kept so that the dynamic subset below is drawn from
-        # the same generator state.
-        rng.randint(0, 3, n)
-        rng.rand(n)
+        self.level = rng.randint(0, 3, n).astype(np.int32)
+        # Persistent per-landmark saliency: a detector fires on the same
+        # corners every frame.
+        self.saliency = rng.rand(n).astype(np.float32)
+        self.rng = rng          # observe's default generator
         self._patches = None
         n_dyn = int(round(cfg.dynamic_frac * n))
         self.dynamic_ids = rng.choice(n, n_dyn, replace=False) \
@@ -77,6 +79,68 @@ class SyntheticWorld:
         pw[self.dynamic_ids] += (self.cfg.dynamic_amp
                                  * off[:, None] * self._dyn_dir)
         return pw
+
+    def observe(self, Rcw, tcw, cam: cm.Camera, *, bf: float = 0.0,
+                n_kp: int = 600, pixel_noise: float = 0.3,
+                bit_flips: int = 4, clutter: int = 60,
+                dropout: float = 0.05, min_depth: float = 0.3,
+                max_depth: float = 25.0, rng=None):
+        """One frame's feature set, straight from the landmarks.
+
+        The visible landmarks (random dropout, strongest saliency first)
+        with pixel noise and a few flipped descriptor bits, then `clutter`
+        random detections; with bf > 0 the depth comes from the same noisy
+        disparity a stereo matcher would measure.  Draws from `rng` (numpy
+        RandomState; default the world's own).  Returns dict(uv, level,
+        angle, desc, ur, depth, valid, lm_id) of capacity n_kp; lm_id is
+        the true landmark (-1 clutter)."""
+        rng = rng or self.rng
+        pc = self.pw @ Rcw.T + tcw
+        z = pc[:, 2]
+        uv = cm.project(cam, torch.from_numpy(
+            np.ascontiguousarray(pc, np.float32))).numpy()
+        vis = ((z > min_depth) & (z < max_depth)
+               & (uv[:, 0] >= 1) & (uv[:, 0] < cam.width - 1)
+               & (uv[:, 1] >= 1) & (uv[:, 1] < cam.height - 1))
+        vis &= rng.rand(len(z)) > dropout
+        ids = np.nonzero(vis)[0]
+        ids = ids[np.argsort(-self.saliency[ids], kind="stable")]
+        n_real = min(len(ids), n_kp - clutter)
+        ids = ids[:n_real]
+
+        out_uv = np.zeros((n_kp, 2), np.float32)
+        out_level = np.zeros(n_kp, np.int32)
+        out_angle = np.zeros(n_kp, np.float32)
+        out_desc = np.zeros((n_kp, 8), np.uint32)
+        out_ur = np.full(n_kp, -1.0, np.float32)
+        out_depth = np.full(n_kp, -1.0, np.float32)
+        out_valid = np.zeros(n_kp, bool)
+        out_lmid = np.full(n_kp, -1, np.int64)
+
+        out_uv[:n_real] = uv[ids] + rng.randn(n_real, 2) * pixel_noise
+        out_level[:n_real] = self.level[ids]
+        desc = self.desc[ids].copy()
+        for _ in range(bit_flips):
+            word = rng.randint(0, 8, n_real)
+            bit = rng.randint(0, 32, n_real).astype(np.uint32)
+            desc[np.arange(n_real), word] ^= (np.uint32(1) << bit)
+        out_desc[:n_real] = desc
+        if bf > 0:
+            disp_meas = bf / z[ids] + rng.randn(n_real) * pixel_noise
+            out_ur[:n_real] = out_uv[:n_real, 0] - disp_meas
+            out_depth[:n_real] = bf / np.maximum(disp_meas, 1e-3)
+        out_valid[:n_real] = True
+        out_lmid[:n_real] = ids
+
+        c0, c1 = n_real, min(n_kp, n_real + clutter)
+        nc = c1 - c0
+        if nc > 0:
+            out_uv[c0:c1] = rng.rand(nc, 2) * [cam.width - 2, cam.height - 2]
+            out_desc[c0:c1] = rng.randint(0, 2 ** 32, (nc, 8), np.uint64)
+            out_valid[c0:c1] = True
+        return dict(uv=out_uv, level=out_level, angle=out_angle,
+                    desc=out_desc, ur=out_ur, depth=out_depth,
+                    valid=out_valid, lm_id=out_lmid)
 
     def _landmark_patches(self, size: int = 12):
         """Per-landmark fixed texture stamp: a 2x-upsampled random block
@@ -195,6 +259,38 @@ def circle_trajectory(t, radius=4.0, omega=0.3, z=0.0, look_outward=False,
             v.astype(np.float32), a_w.astype(np.float32))
 
 
+def figure_eight_trajectory(t, a=2.0, b=1.2, omega=0.35, z=0.0,
+                            heading="tangent"):
+    """Lemniscate p(t) = (a sin(wt), b sin(2wt), z): each lap revisits
+    every pose.  heading="tangent" faces along the travel (the view sweeps
+    360 degrees a lap, so a revisit needs place recognition); a point
+    (x, y, z) makes the camera look away from it.
+
+    Returns (Rwc, twc, v_world, a_world), f32."""
+    t = np.asarray(t, np.float64)
+    w = omega
+    pos = np.stack([a * np.sin(w * t), b * np.sin(2 * w * t),
+                    np.full_like(t, z)], -1)
+    v = np.stack([a * w * np.cos(w * t), 2 * b * w * np.cos(2 * w * t),
+                  np.zeros_like(t)], -1)
+    a_w = np.stack([-a * w ** 2 * np.sin(w * t),
+                    -4 * b * w ** 2 * np.sin(2 * w * t),
+                    np.zeros_like(t)], -1)
+    if isinstance(heading, str) and heading == "tangent":
+        fwd = v.copy()
+    else:
+        fwd = pos - np.asarray(heading, np.float64)[None, :]
+    fwd = fwd / np.maximum(np.linalg.norm(fwd, axis=-1, keepdims=True),
+                           1e-9)
+    up = np.tile([0.0, 0.0, -1.0], (len(t), 1))
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right, axis=-1, keepdims=True)
+    down = np.cross(fwd, right)
+    Rwc = np.stack([right, down, fwd], axis=-1)
+    return (Rwc.astype(np.float32), pos.astype(np.float32),
+            v.astype(np.float32), a_w.astype(np.float32))
+
+
 def trajectory_to_tcw(Rwc, twc):
     Rcw = np.swapaxes(Rwc, -1, -2)
     tcw = -np.einsum("tij,tj->ti", Rcw, twc)
@@ -236,18 +332,62 @@ def make_imu_samples(t_frames, Rwb, v_w, a_w, rate_hz=200.0,
     ba = np.zeros(3) if ba is None else np.asarray(ba)
     w_b = interp(ts, t_frames, body_rates_from_poses(Rwb, t_frames))
     a_world = interp(ts, t_frames, a_w)
-    i1 = np.clip(np.searchsorted(t_frames, ts, side="right"), 1,
-                 len(t_frames) - 1)
-    i0 = i1 - 1
-    denom = np.maximum(t_frames[i1] - t_frames[i0], 1e-9)
-    frac = np.clip((ts - t_frames[i0]) / denom, 0.0, 1.0)
-    R0, R1 = Rwb[i0], Rwb[i1]
-    dphi = _so3_log(np.einsum("tji,tjk->tik", R0, R1))
-    dRot = lie.so3_exp(torch.from_numpy(
-        np.ascontiguousarray(dphi * frac[:, None]))).numpy()
-    Rb = np.einsum("tij,tjk->tik", R0, dRot)
+    Rb, _ = _interpolate_pose(t_frames, Rwb, None, ts)
     a_b = np.einsum("tij,ti->tj", Rb, a_world - g)   # R^T (a - g)
     gyro = w_b + bg + rng.randn(*w_b.shape) * noise_g
     acc = a_b + ba + rng.randn(*a_b.shape) * noise_a
     return ts.astype(np.float64), gyro.astype(np.float32), \
         acc.astype(np.float32)
+
+
+def _interpolate_pose(t_frames, Rwb, p_wb, te):
+    """Body attitude (interpolated on SO(3)) and, if p_wb is given,
+    position (linearly) at the times te, between the frame samples."""
+    i1 = np.clip(np.searchsorted(t_frames, te, side="right"), 1,
+                 len(t_frames) - 1)
+    i0 = i1 - 1
+    denom = np.maximum(t_frames[i1] - t_frames[i0], 1e-9)
+    frac = np.clip((te - t_frames[i0]) / denom, 0.0, 1.0)
+    R0, R1 = Rwb[i0], Rwb[i1]
+    dphi = _so3_log(np.einsum("tji,tjk->tik", R0, R1))
+    dRot = lie.so3_exp(torch.from_numpy(
+        np.ascontiguousarray(dphi * frac[:, None]))).numpy()
+    Rb = np.einsum("tij,tjk->tik", R0, dRot)
+    if p_wb is None:
+        return Rb, None
+    return Rb, p_wb[i0] + (p_wb[i1] - p_wb[i0]) * frac[:, None]
+
+
+def make_encoder_samples(t_frames, Rwb, p_wb, Rbe, tbe, rate_hz=100.0,
+                         half_track=0.28, noise_v=0.0, seed=0):
+    """Differential-drive wheel speeds consistent with the trajectory (the
+    VEO / VIEO input).  The encoder frame E (x forward, y left, z up)
+    rides on the body, T_we = T_wb T_be; each sample interval's exact
+    SE(3) delta of E is projected to SE(2) (yaw and in-plane translation)
+    and inverted through the preintegrator's midpoint model, so that
+    preintegrating the speeds reproduces planar motion to rounding.  Noise
+    from numpy RandomState(seed).  Returns (ts [T] f64, v_left [T],
+    v_right [T])."""
+    rng = np.random.RandomState(seed)
+    t_frames = np.asarray(t_frames, np.float64)
+    ts = np.arange(t_frames[0], t_frames[-1], 1.0 / rate_hz)
+    te = np.concatenate([ts, [min(ts[-1] + 1.0 / rate_hz, t_frames[-1])]])
+    Rb, pb = _interpolate_pose(t_frames, Rwb, p_wb, te)
+    Rbe = np.asarray(Rbe, np.float64)
+    tbe = np.asarray(tbe, np.float64)
+    R_we = Rb @ Rbe
+    p_we = pb + np.einsum("tij,j->ti", Rb, tbe)
+    dR_e = np.einsum("tji,tjk->tik", R_we[:-1], R_we[1:])
+    dp_e = np.einsum("tji,tj->ti", R_we[:-1], p_we[1:] - p_we[:-1])
+    ang = _so3_log(dR_e)
+    dt = np.maximum(np.diff(te), 1e-9)
+    w = ang[:, 2] / dt
+    # The midpoint translation model, inverted: project onto the midpoint
+    # heading (theta starts at 0 each interval).
+    c = np.cos(0.5 * ang[:, 2])
+    s = np.sin(0.5 * ang[:, 2])
+    v = (dp_e[:, 0] * c + dp_e[:, 1] * s) / dt
+    v_left = v - w * half_track + rng.randn(len(v)) * noise_v
+    v_right = v + w * half_track + rng.randn(len(v)) * noise_v
+    return ts.astype(np.float64), v_left.astype(np.float32), \
+        v_right.astype(np.float32)

@@ -28,13 +28,16 @@ def lm_solve(system_fn: Callable, cost_fn: Callable, retract_fn: Callable,
     dt = H0.dtype
     lam = init_lambda_factor * torch.clamp_min(torch.diagonal(H0).max(),
                                                min_diag)
-    nu = torch.tensor(2.0, dtype=dt, device=H0.device)
+    nu = torch.full((), 2.0, dtype=dt, device=H0.device)
     cost = c0.to(dt)
     x = tuple(x0)
     eye = torch.eye(H0.shape[0], dtype=dt, device=H0.device)
     for _ in range(iters):
         H, b, _ = system_fn(x)
-        dx = torch.linalg.solve(H + lam * eye, b)
+        # solve_ex: no host-side singularity check (a device sync), so
+        # that a CUDA graph can capture the loop; H + lam I is positive
+        # definite for lam > 0.
+        dx = torch.linalg.solve_ex(H + lam * eye, b)[0]
         x_new = tuple(a.to(ref.dtype) for a, ref in zip(retract_fn(x, dx), x))
         new_cost = cost_fn(x_new).to(dt)
         pred = 0.5 * torch.dot(dx, lam * dx + b)

@@ -144,3 +144,69 @@ def pose_optimization(Rcw0: torch.Tensor, tcw0: torch.Tensor, obs: PoseObs,
     inliers = active & obs.valid
     return PoseOptResult(Rcw=pose[0], tcw=pose[1], inliers=inliers,
                          n_inliers=inliers.sum(), H=H)
+
+
+def pose_optimization_with_prior(Rcw0: torch.Tensor, tcw0: torch.Tensor,
+                                 obs: PoseObs, cam: cm.Camera, bf,
+                                 R_prior: torch.Tensor, t_prior: torch.Tensor,
+                                 prior_info: torch.Tensor, *,
+                                 rounds: int = 2,
+                                 iters_per_round: int = 4) -> PoseOptResult:
+    """Vision motion BA plus a 6D SE(3) prior on the camera pose (the
+    wheel-encoder motion solve).
+
+    The preintegrated wheel odometry predicts T_prior for the current
+    camera with information `prior_info` [6, 6] in the left tangent of
+    Tcw, ordered [rho, phi].  The prior residual r = log(Tcw T_prior^-1)
+    enters every LM system with Jacobian I (exact to first order), so the
+    odometry bounds the pose where few inliers leave vision
+    underdetermined.  Classic LM; capturable in a CUDA graph (a float `bf`
+    becomes a fill on the device, not a host copy)."""
+    dtype = tcw0.dtype
+    if not isinstance(bf, torch.Tensor):
+        bf = torch.full((), float(bf), dtype=dtype, device=tcw0.device)
+
+    def prior_terms(pose):
+        Rd = pose[0] @ R_prior.T
+        r6 = lie.se3_log(Rd, pose[1] - Rd @ t_prior)      # [rho, phi]
+        return r6, r6 @ prior_info @ r6
+
+    def chi2_of(pose):
+        r, _, stereo, depth_ok = _residuals(pose[0], pose[1], obs, cam, bf)
+        chi2 = _chi2(r, obs.inv_sigma2)
+        return chi2, _delta2(stereo, chi2.dtype), depth_ok
+
+    def make_fns(active):
+        w_active = (active & obs.valid).to(dtype)
+
+        def system_fn(pose):
+            r, J, stereo, depth_ok = _residuals(pose[0], pose[1], obs, cam, bf)
+            chi2 = _chi2(r, obs.inv_sigma2)
+            delta2 = _delta2(stereo, chi2.dtype)
+            w = (huber_weight(chi2, delta2) * obs.inv_sigma2 * w_active
+                 * depth_ok)
+            H = torch.einsum("nri,n,nrj->ij", J, w, J)
+            b = -torch.einsum("nri,n,nr->i", J, w, r)
+            r6, pcost = prior_terms(pose)
+            return (H + prior_info, b - prior_info @ r6,
+                    _robust_cost(chi2, delta2, w_active, depth_ok) + pcost)
+
+        def cost_fn(pose):
+            chi2, delta2, depth_ok = chi2_of(pose)
+            return _robust_cost(chi2, delta2, w_active, depth_ok) \
+                + prior_terms(pose)[1]
+
+        return system_fn, cost_fn
+
+    pose = (Rcw0, tcw0)
+    active = torch.ones_like(obs.valid)
+    H = torch.zeros((6, 6), dtype=dtype, device=tcw0.device)
+    for _ in range(rounds):
+        system_fn, cost_fn = make_fns(active)
+        pose, _, H = lm_solve(system_fn, cost_fn, _retract, pose,
+                              iters=iters_per_round)
+        chi2, delta2, depth_ok = chi2_of(pose)
+        active = (chi2 <= delta2) & depth_ok
+    inliers = active & obs.valid
+    return PoseOptResult(Rcw=pose[0], tcw=pose[1], inliers=inliers,
+                         n_inliers=inliers.sum(), H=H)

@@ -14,7 +14,10 @@ on the card's default stream, so the device work of the two serializes
 in the order the host enqueued it; they also share the GIL.  CUDA graphs
 are captured on the caller's thread only (utils/cuda_graph.py).  Place
 recognition is entered by attaching a `backend.loop_closing.LoopCloser`
-to `System.loop_closer`.  Map save/load come with their slice.
+to `System.loop_closer`.  A map saved with `save_map` (io/serialization:
+the JAX package's file format) is reused by `load_map` into a fresh
+System, which then relocalizes against it; `set_localization_mode` stops
+keyframe processing (tracking only).
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import queue
 import threading
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .backend.local_mapping import LocalMapper, LocalMappingConfig
@@ -51,6 +53,9 @@ class SystemConfig:
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
     mapper: LocalMappingConfig = dataclasses.field(
         default_factory=LocalMappingConfig)
+    # Tracking only: keyframes the tracker creates get no local mapping,
+    # loop closing or global BA.
+    localization_only: bool = False
     # Keyframe processing on a worker thread while tracking goes on; the
     # worker's corrections reach the tracker at the next frame boundary.
     async_mapping: bool = False
@@ -212,7 +217,7 @@ class System:
                         metrics.count("reloc_success")
                 metrics.count("reloc_attempts")
             new_kf = self.tracker.last_new_kf
-            if new_kf is not None:
+            if new_kf is not None and not self.cfg.localization_only:
                 metrics.count("keyframes")
                 if self.defer_kf_dispatch:
                     self.deferred_kf = new_kf
@@ -262,17 +267,40 @@ class System:
 
     def trajectory_tum(self, optimized: bool = True) -> str:
         """TUM format: t x y z qx qy qz qw of Twc."""
-        from .math import lie
-        lines = []
-        for t, Rcw, tcw, _ in self.trajectory(optimized):
-            Rwc = Rcw.T
-            twc = -Rwc @ tcw
-            q = lie.quat_from_rotmat(torch.from_numpy(
-                np.ascontiguousarray(Rwc))).numpy()
-            lines.append(
-                f"{t:.6f} {twc[0]:.7f} {twc[1]:.7f} {twc[2]:.7f} "
-                f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}")
-        return "\n".join(lines) + "\n"
+        from .io.serialization import tum_line
+        return "".join(tum_line(t, Rcw, tcw) + "\n"
+                       for t, Rcw, tcw, _ in self.trajectory(optimized))
+
+    def save_trajectory_tum(self, path: str):
+        with open(path, "w") as f:
+            f.write(self.trajectory_tum())
+
+    def save_map(self, path: str):
+        """Persist the sparse map (after the worker has drained)."""
+        from .io.serialization import save_map
+        self.wait_idle()
+        save_map(self.map, path)
+
+    def load_map(self, path: str):
+        """Replace the map with a saved one (map reuse): the loop closer's
+        database is rebuilt from the loaded keyframes, and the tracker is
+        LOST until the next frames relocalize against the map."""
+        from .io.serialization import load_map
+        self.wait_idle()
+        self.map = load_map(path)
+        self.tracker.map = self.map
+        self.mapper.map = self.map
+        if self.loop_closer is not None:
+            self.loop_closer.map = self.map
+            self.loop_closer.rebuild_database()
+        self.tracker.state = TrackState.LOST
+        self.tracker.velocity = None
+        self.tracker.last_kf_id = int(self.map.keyframe_ids()[-1]) \
+            if self.map.n_keyframes() else -1
+
+    def set_localization_mode(self, on: bool):
+        """Tracking only when on: no keyframe processing."""
+        self.cfg.localization_only = bool(on)
 
     def reset(self):
         """A fresh map and tracker (the correction sinks follow it); an

@@ -63,7 +63,7 @@ class VioBackend:
         self.map = map_state
         self.cam = cam
         self.bf = float(bf)
-        self.ring = ring                    # io.odom_ring.OdomRing (IMU)
+        self.ring = ring                    # an io.odom_ring ring (IMU)
         self.enc_ring = enc_ring
         self.Rcb = np.asarray(Rcb, np.float32)
         self.tcb = np.asarray(tcb, np.float32)

@@ -1,9 +1,10 @@
 """VIO front end: IMU-fused tracking around the visual System.
 
-Port of vieo_slam_tpu/vio/frontend.py.  Odometry samples go to an
-io.odom_ring.OdomRing; each frame's IMU window is preintegrated on the
-system's device, the IMU-propagated state gives the tracker its pose
-prediction (and carries the pose through a visual dropout, ODOMOK), and
+Port of vieo_slam_tpu/vio/frontend.py.  Odometry samples go to the
+native ring (io.odom_ring.NativeOdomRing); each frame's IMU window is
+preintegrated on the system's device, the IMU-propagated state gives the
+tracker its pose prediction (and carries the pose through a visual
+dropout, ODOMOK), and
 after visual tracking the 30D joint motion BA (solvers/vio_ba) fuses
 vision and IMU and carries the 15D marginal prior from frame to frame.  VI
 initialization (vio/initialization) runs at keyframe cadence until enough
@@ -25,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..io.odom_ring import OdomRing, trim_padding
+from ..io.odom_ring import NativeOdomRing, trim_padding
 from ..math.lie import normalize_rotation_np
 from ..math.navstate import NavState, navstate_from_tcw, tcw_from_navstate
 from ..math.preintegration import preintegrate_encoder, preintegrate_imu
@@ -90,8 +91,9 @@ class VioFrontend:
             np.asarray(tcb, np.float32)
         self._Rcb_t = self._t(self.Rcb)
         self._tcb_t = self._t(self.tcb)
-        self.ring = OdomRing(1 << 16)
-        self.enc_ring = OdomRing(1 << 14) if self.cfg.use_encoder else None
+        self.ring = NativeOdomRing(1 << 16)
+        self.enc_ring = NativeOdomRing(1 << 14) if self.cfg.use_encoder \
+            else None
         self.Rbe = np.eye(3, dtype=np.float32) if self.cfg.enc_Rbe is None \
             else np.asarray(self.cfg.enc_Rbe, np.float32)
         self.tbe = np.zeros(3, np.float32) if self.cfg.enc_tbe is None \
