@@ -9,7 +9,8 @@ entries than one launch takes, empty entries, images smaller than the
 window and centers off the image; for the tail kernel B5 one keypoint,
 odd counts, one level, an empty level, more levels than one launch takes,
 the 16 levels of a full-width stereo pair, centers on and outside the
-border and an image as narrow as the window.
+border and an image as narrow as the window; and B1-B5 on every visible
+GPU of a machine with two or more, while cuda:0 is the current device.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skip elsewhere.  Run them on the card with
@@ -336,3 +337,52 @@ def test_tail_fused_rejects_bad_arguments(dev):
         cuda_tail.tail_fused_multi([img.T], [uv])
     with pytest.raises(ValueError):
         cuda_tail.tail_fused_multi([img], [uv.cpu()])
+
+
+def test_kernels_on_every_gpu(dev):
+    """B1-B5 on each visible GPU while cuda:0 stays the current device:
+    the wrappers make the tensors' device current around each launch (the
+    libraries launch on the current device), so each card computes its
+    own shard and answers as the plain version does."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more GPUs to launch away from the "
+                    f"current device; {n} visible")
+    rng = np.random.RandomState(9)
+    img = rng.rand(61, 97).astype(np.float32) * 220 + 10
+    centers = np.stack([rng.randint(0, 97, 50), rng.randint(0, 61, 50)],
+                       -1).astype(np.int32)
+    a, b = descriptors(rng, 40, 20), descriptors(rng, 300, 100)
+    mask = rng.rand(40, 300) < 0.3
+    uv_b = (rng.rand(300, 2) * [97, 61]).astype(np.float32)
+    uv_a = uv_b[rng.randint(0, 300, 40)] + rng.randn(40, 2).astype(
+        np.float32) * 4
+    for i in range(n):
+        d = torch.device("cuda", i)
+        x, c = torch.from_numpy(img).to(d), torch.from_numpy(centers).to(d)
+        ta, tb = torch.from_numpy(a).to(d), torch.from_numpy(b).to(d)
+        proj = [ta, tb, torch.from_numpy(uv_a).to(d),
+                torch.full((40,), 15.0, device=d),
+                torch.zeros(40, dtype=torch.int32, device=d),
+                torch.ones(40, dtype=torch.bool, device=d),
+                torch.from_numpy(uv_b).to(d),
+                torch.zeros(300, dtype=torch.int32, device=d),
+                torch.ones(300, dtype=torch.bool, device=d), 1]
+        with torch.cuda.device(0):
+            got = [cuda_fast.fast_nms_blend(x, 20.0, 7.0),
+                   cuda_gather.gather_patches(x, c, 15),
+                   *cm.fused_best2(ta, tb, torch.from_numpy(mask).to(d)),
+                   *cm.fused_projection_best2(*proj),
+                   *cuda_tail.tail_fused_multi([x], [c])[0]]
+        torch.cuda.synchronize(d)
+        want = [cuda_fast.fast_nms_blend_plain(x, 20.0, 7.0),
+                cuda_gather.gather_patches_plain(x, c, 15),
+                *cm.fused_best2_plain(ta, tb, torch.from_numpy(mask).to(d)),
+                *cm.fused_projection_best2_plain(*proj),
+                *cuda_tail.tail_fused_multi_plain([x], [c])[0]]
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert g.device == d, (i, k)
+            if k == len(got) - 2:           # B5's angles: 1e-6 rad
+                assert float((g - w).abs().max()) <= 1e-6, (i, k)
+            else:
+                assert torch.equal(g, w), (i, k)

@@ -7,8 +7,8 @@ covisible keyframes (kernel B3), cull probation landmarks, run the
 windowed BA, cull redundant keyframes.  Window selection and bookkeeping
 are host-side numpy; the heavy steps run on the mapper's device.  Global
 BA (`run_global_ba`) runs after a loop closure and at shutdown: the
-single-device chunked solve; the distributed branch comes with the
-multi-GPU slice.
+single-device chunked solve or, over a mesh of several shards, the
+landmark-sharded distributed solve of parallel/dist_ba.py.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..cameras import models as cm
 from ..frontend.frame import desc_to_tensor
 from ..map.map_state import MapState
 from ..ops import matching
+from ..parallel.dist_ba import distributed_ba, make_ba_mesh, pad_landmarks
 from ..math.lie import normalize_rotation_np
 from ..solvers.local_ba import BAProblem, landmark_refit_chi2, local_ba
 from ..utils.device import resolve_device
@@ -61,12 +62,20 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 class LocalMapper:
     def __init__(self, cam: cm.Camera, bf: float, map_state: MapState,
-                 cfg: LocalMappingConfig | None = None, device=None):
+                 cfg: LocalMappingConfig | None = None, device=None,
+                 ba_mesh=None):
         self.cam = cam
         self.bf = float(bf)
         self.map = map_state
         self.cfg = cfg or LocalMappingConfig()
         self.device = resolve_device(device)
+        # The global BA's parallel.dist_ba.BAMesh (in-process).  None: the
+        # mapper's own device alone, so the global BA runs the single-device
+        # solve.  Unlike the JAX package's mapper, which shards over
+        # jax.devices(), a GPU mapper does not take every visible GPU
+        # unasked: no sharded GBA has been measured faster than one device
+        # (PERF.md, the distributed GBA).
+        self.ba_mesh = ba_mesh
         self.recent_lms: list[tuple[int, np.ndarray]] = []  # (kf, lm_ids)
         # Set by a VIO front end once its keyframe backend (the PRV window
         # BA of vio/backend.py) takes over from the vision-only local BA.
@@ -277,33 +286,88 @@ class LocalMapper:
                 np.add.at(m.lm_n_obs, lm_ids[mm], -1)
                 m.version += 1
 
-    def run_global_ba(self, *, stage_iters=(8, 12), abort=None,
-                      correction_sinks=None) -> bool:
+    def run_global_ba(self, *, stage_iters=(8, 12), distributed=None,
+                      abort=None, correction_sinks=None) -> bool:
         """Full-map BA: all keyframes free except the first (gauge), all
         landmarks.  Run after a loop closure and by System.final_global_ba.
 
-        One solve per stage of `stage_iters`, the outlier classification
-        carried from one into the next.  abort: optional threading.Event,
-        checked between the chunks and before the write-back; an aborted
-        GBA discards its result and returns False."""
-        m = self.map
-
+        Single device: one solve per stage of `stage_iters`, the outlier
+        classification carried from one into the next.  distributed: the
+        landmark-sharded solve of parallel.dist_ba over `self.ba_mesh`
+        (None: the mapper's device alone), one distributed_ba call per
+        stage (its Huber weights re-derived
+        every iteration: no chi2 classification is carried across the
+        stages).  None = auto: distributed when the mesh has more than one
+        shard and the problem at least 8192 padded landmarks; a one-shard
+        mesh always runs the single-device solve.  abort: optional
+        threading.Event, checked before every stage and before the
+        write-back; an aborted GBA discards its result and returns
+        False."""
         def aborted():
             return abort is not None and abort.is_set()
 
+        built = self.global_problem()
+        if built is None:
+            return False
+        prob, kf_order, lm_ids, snap_next_kf = built
+        K, M = len(kf_order), len(lm_ids)
+        mesh = self.ba_mesh if self.ba_mesh is not None \
+            else make_ba_mesh([self.device])
+        if distributed is None:
+            distributed = mesh.size > 1 and prob.pw.shape[0] >= 8192
+        if distributed and mesh.size > 1:
+            if mesh.group is not None:
+                raise ValueError("run_global_ba shards over an in-process "
+                                 "mesh, not a process group")
+            prob = pad_landmarks(prob, mesh.size)
+            for it in stage_iters:
+                if aborted():
+                    return False
+                Rcw, tcw, pw = distributed_ba(prob, self.cam, self.bf, mesh,
+                                              iters=it)
+                prob = prob._replace(Rcw=Rcw.to(self.device),
+                                     tcw=tcw.to(self.device),
+                                     pw=pw.to(self.device))
+        else:
+            active = None
+            for it in stage_iters:
+                if aborted():
+                    return False
+                res = local_ba(prob, self.cam, self.bf, stage_iters=(it,),
+                               init_active=active)
+                prob = prob._replace(Rcw=res.Rcw, tcw=res.tcw, pw=res.pw)
+                active = res.obs_inlier
+        Rcw = _np(prob.Rcw)[:K]
+        tcw = _np(prob.tcw)[:K]
+        pw = _np(prob.pw)[:M]
+        if aborted():
+            return False
+        with self.map.lock:
+            return self._apply_gba_result(
+                kf_order, lm_ids, Rcw, tcw, pw, n_free=K - 1,
+                snap_next_kf=snap_next_kf, correction_sinks=correction_sinks)
+
+
+    def global_problem(self):
+        """The global BA's problem, built under map.lock: every keyframe
+        (the first fixed) and every valid landmark they observe, padded,
+        after the moving-landmark cull (which erases the landmarks it
+        finds from the map).  Returns (prob, kf_order, lm_ids,
+        snap_next_kf), or None for a map too small to solve."""
+        m = self.map
         with m.lock:
             kfs = m.keyframe_ids()
             if len(kfs) < 3:
-                return False
+                return None
             lm_ids = m.landmarks_in_keyframes(kfs)
             lm_ids = lm_ids[m.lm_valid[lm_ids]]
             if lm_ids.size < 10:
-                return False
+                return None
             prob_np, kf_order, lm_ids = m.build_ba_problem(kfs[1:], kfs[:1],
                                                            lm_ids)
             snap_next_kf = m._next_kf
         prob = self._pad_problem(prob_np)
-        K, M = len(kf_order), len(lm_ids)
+        M = len(lm_ids)
         if self.cfg.gba_moving_cull_chi2 > 0:
             med, n_obs = landmark_refit_chi2(prob, self.cam, self.bf)
             med, n_obs = _np(med)[:M], _np(n_obs)[:M]
@@ -318,24 +382,7 @@ class LocalMapper:
                 mj = self._t(mask)
                 prob = prob._replace(lm_valid=prob.lm_valid & mj,
                                      obs_valid=prob.obs_valid & mj[:, None])
-        res = None
-        active = None
-        for it in stage_iters:
-            if aborted():
-                return False
-            res = local_ba(prob, self.cam, self.bf, stage_iters=(it,),
-                           init_active=active)
-            prob = prob._replace(Rcw=res.Rcw, tcw=res.tcw, pw=res.pw)
-            active = res.obs_inlier
-        Rcw = _np(res.Rcw)[:K]
-        tcw = _np(res.tcw)[:K]
-        pw = _np(res.pw)[:M]
-        if aborted():
-            return False
-        with m.lock:
-            return self._apply_gba_result(
-                kf_order, lm_ids, Rcw, tcw, pw, n_free=K - 1,
-                snap_next_kf=snap_next_kf, correction_sinks=correction_sinks)
+        return prob, kf_order, lm_ids, snap_next_kf
 
     def _apply_gba_result(self, kf_order, lm_ids, Rcw, tcw, pw, *,
                           n_free: int, snap_next_kf: int,

@@ -136,6 +136,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(t: torch.Tensor):
+    """Make t's device current around a launch: the libraries link the
+    static CUDA runtime, which launches on the calling thread's current
+    device, whatever device the stream or the pointers belong to."""
+    return torch.cuda.device(t.device)
+
+
 def check(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

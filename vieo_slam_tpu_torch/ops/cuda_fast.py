@@ -116,9 +116,10 @@ def fast_nms_blend_multi(level_imgs: list, th_hi: float, th_lo: float,
         chunk = level_imgs[a:a + MAX_LEVELS]
         table = np.array([(im.data_ptr(), im.shape[0], im.shape[1])
                           for im in chunk], dtype=np.int64)
-        rc = lib.vs_fast_nms_blend_multi(
-            table.ctypes.data, len(chunk), base + 4 * o, float(th_hi),
-            float(th_lo), float(boost), stream)
+        with cuda_build.on_device(flat):
+            rc = lib.vs_fast_nms_blend_multi(
+                table.ctypes.data, len(chunk), base + 4 * o, float(th_hi),
+                float(th_lo), float(boost), stream)
         cuda_build.check(rc, "fast_nms_blend")
         cuda_build.LAUNCHES["fast_nms_blend"] += 1
         o += sum(sizes[a:a + MAX_LEVELS])

@@ -103,9 +103,10 @@ def gather_patches_flat(level_imgs: list, level_uvs: list,
     lib = cuda_build.library("gather.cu")
     stream = cuda_build.stream_of(out)
     for rows, n_rows, k0 in launches(table, counts):
-        rc = lib.vs_gather_patches_multi(rows, n_rows,
-                                         out.data_ptr() + 4 * d * d * k0,
-                                         int(radius), stream)
+        with cuda_build.on_device(out):
+            rc = lib.vs_gather_patches_multi(rows, n_rows,
+                                             out.data_ptr() + 4 * d * d * k0,
+                                             int(radius), stream)
         cuda_build.check(rc, "gather_patches")
         cuda_build.LAUNCHES["gather_patches"] += 1
     return out

@@ -141,9 +141,10 @@ def fused_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
         return _empty_result(M, N, dev)
     out, buf = _outputs(M, N, dev)
     lib = cuda_build.library("matching.cu")
-    rc = lib.vs_fused_best2(desc_a.data_ptr(), desc_b.data_ptr(),
-                            mask.data_ptr(), M, N, buf.data_ptr(),
-                            cuda_build.stream_of(desc_a))
+    with cuda_build.on_device(desc_a):
+        rc = lib.vs_fused_best2(desc_a.data_ptr(), desc_b.data_ptr(),
+                                mask.data_ptr(), M, N, buf.data_ptr(),
+                                cuda_build.stream_of(desc_a))
     cuda_build.check(rc, "fused_best2")
     cuda_build.LAUNCHES["fused_best2"] += 1
     return out
@@ -188,10 +189,11 @@ def fused_projection_best2(desc_a, desc_b, uv_a, radius_a, level_a, valid_a,
         return _empty_result(M, N, dev)
     out, buf = _outputs(M, N, dev)
     lib = cuda_build.library("matching.cu")
-    rc = lib.vs_fused_projection_best2(
-        desc_a.data_ptr(), desc_b.data_ptr(), *(t.data_ptr() for t in side),
-        float(level_tolerance), M, N, buf.data_ptr(),
-        cuda_build.stream_of(desc_a))
+    with cuda_build.on_device(desc_a):
+        rc = lib.vs_fused_projection_best2(
+            desc_a.data_ptr(), desc_b.data_ptr(),
+            *(t.data_ptr() for t in side), float(level_tolerance), M, N,
+            buf.data_ptr(), cuda_build.stream_of(desc_a))
     cuda_build.check(rc, "fused_projection_best2")
     cuda_build.LAUNCHES["fused_projection_best2"] += 1
     return out

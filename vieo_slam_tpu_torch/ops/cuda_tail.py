@@ -145,10 +145,11 @@ def tail_fused_multi(level_imgs: list, level_uvs: list):
         pattern, weights = (x.data_ptr() for x in _tables_on(dev))
         stream = cuda_build.stream_of(angle)
         for rows, n_rows, k0 in launches(table, counts):
-            rc = lib.vs_tail_fused(rows, n_rows, _TAPS, pattern, weights,
-                                   angle.data_ptr() + 4 * k0,
-                                   desc.data_ptr() + 4 * DESC_WORDS * k0,
-                                   stream)
+            with cuda_build.on_device(angle):
+                rc = lib.vs_tail_fused(rows, n_rows, _TAPS, pattern, weights,
+                                       angle.data_ptr() + 4 * k0,
+                                       desc.data_ptr() + 4 * DESC_WORDS * k0,
+                                       stream)
             cuda_build.check(rc, "tail_fused")
             cuda_build.LAUNCHES["tail_fused"] += 1
     return list(zip(angle.split(counts), desc.split(counts)))

@@ -3,9 +3,13 @@
 Port of vieo_slam_tpu/solvers/local_ba.py with the semantics of its CPU
 branch: observations grouped by landmark in fixed-capacity [M, O]
 tensors, per-keyframe sums and the pose-pair Schur fill scattered with
-`index_add_` (the JAX package's segment_sum), and the reduced camera
-system solved densely.  Two robust stages with outlier re-classification
-in between (5 iterations, reclassify, 10 iterations).
+`index_add_` (the JAX package's segment_sum; the pair fill in chunks of
+landmarks, as the JAX package's distributed solve fills it), and the
+reduced camera system solved densely.  parallel/dist_ba.py builds its
+landmark-sharded step from the same pieces (_partial_schur,
+_solve_camera_system, _back_substitute, lm_iterations).  Two robust
+stages with outlier re-classification in between (5 iterations,
+reclassify, 10 iterations).
 """
 
 from __future__ import annotations
@@ -115,21 +119,32 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, seg, x)
 
 
-def _ba_iteration(Rcw, tcw, pw, prob: BAProblem, cam, bf, active, lam):
-    """One damped Schur step; returns candidate (Rcw, tcw, pw)."""
+def _pair_chunk(K: int, M: int) -> int:
+    """Landmarks per chunk of the pose-pair fill: the JAX package's
+    distributed size, which bounds the chunk's [chunk, O, O, 6, 6]
+    temporaries at about 64 MB at any K (one chunk up to 8192
+    landmarks)."""
+    return max(1, min(8192, max(256, (1 << 26) // (72 * max(K, 1))), M))
+
+
+def _partial_schur(Rcw, tcw, pw, prob: BAProblem, cam, bf, active, lam):
+    """The damped Schur system of prob's landmarks (all of them, or one
+    shard's: the pose fields are whole either way).
+
+    Returns ([Hpp [K,6,6], S [K,K,6,6], rhs [K,6]], the terms that a
+    landmark-sharded solve sums over its shards, and (V_inv, bl, Wc,
+    has_obs, kf_i), the landmark terms of the back-substitution."""
     K = Rcw.shape[0]
     r, Jp, Jl, chi2, delta2, depth_ok = _obs_terms(Rcw, tcw, pw, prob, cam,
                                                    bf)
     use = active & prob.obs_valid & depth_ok & (prob.obs_kf >= 0)
     w = huber_weight(chi2, delta2) * prob.obs_inv_sigma2 * use
-    free = ~prob.fixed
     kf_i = prob.obs_kf.clamp_min(0).long()
-    obs_free = free[kf_i] & use
-    wp = torch.where(obs_free, w, torch.zeros_like(w))
+    kf_flat = kf_i.reshape(-1)
+    wp = torch.where((~prob.fixed)[kf_i] & use, w, torch.zeros_like(w))
 
     Hpp_d = torch.einsum("mori,mo,morj->moij", Jp, wp, Jp)
     bp_o = -torch.einsum("mori,mo,mor->moi", Jp, wp, r)
-    kf_flat = kf_i.reshape(-1)
     Hpp = _segment_sum(Hpp_d.reshape(-1, 6, 6), kf_flat, K)
     bp = _segment_sum(bp_o.reshape(-1, 6), kf_flat, K)
 
@@ -144,31 +159,77 @@ def _ba_iteration(Rcw, tcw, pw, prob: BAProblem, cam, bf, active, lam):
     Wc = torch.einsum("mori,mo,morj->moij", Jp, wp, Jl)       # [M,O,6,3]
     Y = Wc @ V_inv[:, None]                                    # [M,O,6,3]
     Yb = torch.einsum("moij,mj->moi", Y, bl)
-    S_pairs = torch.einsum("moik,mpjk->mopij", Y, Wc)          # [M,O,O,6,6]
-    pair_idx = (kf_i[:, :, None] * K + kf_i[:, None, :]).reshape(-1)
-    S = _segment_sum(S_pairs.reshape(-1, 6, 6), pair_idx, K * K).reshape(
-        K, K, 6, 6)
-    rhs_red = bp - _segment_sum(Yb.reshape(-1, 6), kf_flat, K)
+    # S[k,k'] = sum over landmarks of Y_o W_p^T for the pose pair (k, k')
+    # of each observation pair (o, p), scattered in chunks of landmarks.
+    pair_idx = kf_i[:, :, None] * K + kf_i[:, None, :]        # [M,O,O]
+    S = torch.zeros((K * K, 6, 6), dtype=Y.dtype, device=Y.device)
+    chunk = _pair_chunk(K, Y.shape[0])
+    for a in range(0, Y.shape[0], chunk):
+        Sp = torch.einsum("moik,mpjk->mopij", Y[a:a + chunk],
+                          Wc[a:a + chunk])
+        S = S + _segment_sum(Sp.reshape(-1, 6, 6),
+                             pair_idx[a:a + chunk].reshape(-1), K * K)
+    rhs = bp - _segment_sum(Yb.reshape(-1, 6), kf_flat, K)
+    return [Hpp, S.reshape(K, K, 6, 6), rhs], (V_inv, bl, Wc, has_obs, kf_i)
 
+
+def _solve_camera_system(Hpp, S, rhs, free, lam):
+    """The damped reduced camera system, fixed poses masked out: dx [K,6]
+    (zero for the fixed poses)."""
+    K = Hpp.shape[0]
     lam_H = lam * torch.clamp_min(torch.diagonal(Hpp, dim1=-2, dim2=-1),
                                   1e-10)
-    Hpp_d6 = Hpp + torch.diag_embed(lam_H)
     S_full = -S.permute(0, 2, 1, 3).reshape(K, 6, K, 6).clone()
     ii = torch.arange(K, device=S.device)
-    S_full[ii, :, ii, :] += Hpp_d6
+    S_full[ii, :, ii, :] += Hpp + torch.diag_embed(lam_H)
     S_full = S_full.reshape(K * 6, K * 6)
-
     fm = free.repeat_interleave(6).to(S_full.dtype)
     S_masked = S_full * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
-    dx = torch.linalg.solve(S_masked, rhs_red.reshape(-1) * fm).reshape(K, 6)
-    dx = torch.where(free[:, None], dx, torch.zeros_like(dx))
+    dx = torch.linalg.solve(S_masked, rhs.reshape(-1) * fm).reshape(K, 6)
+    return torch.where(free[:, None], dx, torch.zeros_like(dx))
 
+
+def _back_substitute(pw, lm_valid, dx, terms):
+    """The landmarks after the pose step dx."""
+    V_inv, bl, Wc, has_obs, kf_i = terms
     Wt_dx = torch.einsum("moij,moi->mj", Wc, dx[kf_i])
     dl = torch.einsum("mij,mj->mi", V_inv, bl - Wt_dx)
-    dl = torch.where((has_obs & prob.lm_valid)[:, None], dl,
-                     torch.zeros_like(dl))
+    return pw + torch.where((has_obs & lm_valid)[:, None], dl,
+                            torch.zeros_like(dl))
+
+
+def _pose_step(Rcw, tcw, dx):
+    """The poses after the step dx [K,6]."""
     dRs, dts = lie.se3_exp(dx)
-    return (dRs @ Rcw, torch.einsum("kij,kj->ki", dRs, tcw) + dts, pw + dl)
+    return dRs @ Rcw, torch.einsum("kij,kj->ki", dRs, tcw) + dts
+
+
+def _ba_iteration(Rcw, tcw, pw, prob: BAProblem, cam, bf, active, lam):
+    """One damped Schur step; returns candidate (Rcw, tcw, pw)."""
+    (Hpp, S, rhs), terms = _partial_schur(Rcw, tcw, pw, prob, cam, bf,
+                                          active, lam)
+    dx = _solve_camera_system(Hpp, S, rhs, ~prob.fixed, lam)
+    return (*_pose_step(Rcw, tcw, dx),
+            _back_substitute(pw, prob.lm_valid, dx, terms))
+
+
+def lm_iterations(state: list, cost, step, cost_of, n_iters: int, lam):
+    """n_iters Levenberg-Marquardt iterations with true accept/reject.
+
+    step(state, lam) proposes a candidate, a list of tensors like state;
+    cost_of(candidate) is its total cost.  The candidate replaces state
+    where its cost is lower and finite (lambda halves), else lambda grows
+    four times.  The tensors of state may lie on other devices than the
+    cost.  Returns (state, cost)."""
+    for _ in range(n_iters):
+        cand = step(state, lam)
+        new_cost = cost_of(cand)
+        accept = (new_cost < cost) & torch.isfinite(new_cost)
+        state = [torch.where(accept.to(n.device), n, o)
+                 for n, o in zip(cand, state)]
+        lam = torch.where(accept, lam * 0.5, lam * 4.0)
+        cost = torch.where(accept, new_cost, cost)
+    return state, cost
 
 
 def local_ba(prob: BAProblem, cam: cm.Camera, bf=0.0, *,
@@ -179,17 +240,14 @@ def local_ba(prob: BAProblem, cam: cm.Camera, bf=0.0, *,
     bf = torch.as_tensor(bf, dtype=dtype, device=prob.tcw.device)
 
     def lm_stage(Rcw, tcw, pw, active, n_iters):
-        cost = _total_cost(Rcw, tcw, pw, prob, cam, bf, active).to(dtype)
-        lam = torch.tensor(init_lambda, dtype=dtype, device=pw.device)
-        for _ in range(n_iters):
-            cand = _ba_iteration(Rcw, tcw, pw, prob, cam, bf, active, lam)
-            new_cost = _total_cost(*cand, prob, cam, bf, active).to(dtype)
-            accept = (new_cost < cost) & torch.isfinite(new_cost)
-            Rcw = torch.where(accept, cand[0], Rcw)
-            tcw = torch.where(accept, cand[1], tcw)
-            pw = torch.where(accept, cand[2], pw)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            cost = torch.where(accept, new_cost, cost)
+        def cost_of(s):
+            return _total_cost(*s, prob, cam, bf, active).to(dtype)
+
+        (Rcw, tcw, pw), cost = lm_iterations(
+            [Rcw, tcw, pw], cost_of([Rcw, tcw, pw]),
+            lambda s, lam: _ba_iteration(*s, prob, cam, bf, active, lam),
+            cost_of, n_iters,
+            torch.tensor(init_lambda, dtype=dtype, device=pw.device))
         return Rcw, tcw, pw, cost
 
     Rcw, tcw, pw = prob.Rcw, prob.tcw, prob.pw

@@ -314,7 +314,8 @@ class System:
         self.correction_sinks = [self.tracker if s is old_tracker else s
                                  for s in self.correction_sinks]
         self.mapper = LocalMapper(self.cam, self.bf, self.map,
-                                  self.cfg.mapper, device=self.device)
+                                  self.cfg.mapper, device=self.device,
+                                  ba_mesh=self.mapper.ba_mesh)
         if self.loop_closer is not None:
             self.loop_closer.map = self.map
             self.loop_closer.db = None
