@@ -63,7 +63,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      keyframe ATE before and after the first closure and without and with
      the final GBA, the ms of relocalization, loop closing (split between
      candidate verification and the work around it; the closing keyframe
-     alone), GBA and final GBA, and the host waits of one closure.
+     alone), GBA and final GBA.  (Its profiled replay of the first
+     closure, ~79 s, was cut for the script's time; its readings, the host
+     waits of one closure, stay in PERF.md.)
  11. stereo async: phase 5's cell with SystemConfig(async_mapping=True),
      free-running and in lockstep (the worker's queue joined after every
      frame).  Bars: 0 LOST, the worker processed every keyframe (map
@@ -158,6 +160,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
      NCCL world one card allows): poses within 1e-4 of (a)'s one shard.
      Last, the cost of the kernel wrappers' device guard (cuda_build.
      on_device) a launch, and over the launches the run counted.
+ 22. supporting code (`supporting_code_phase`).  (a) A EuRoC mav0/ folder
+     of 40 stereo frames at 752x480 and 20 Hz (the stereo_blackout row's
+     world and circle, fx 458.654, a 0.11 m baseline; PNGs written by
+     io/png, 200 Hz IMU, ground truth) and a EuRoC-style settings file
+     (1200 features, 8 levels), run through examples/run_euroc.main on
+     the card with frames 30-32 inside utils/metrics.trace.  Bars: 0 LOST,
+     40 trajectory lines, ATE against the ground truth < 0.02 m, B1-B4
+     among the trace's CUDA kernels, B1 and B2 once a frame, and
+     System.shutdown(print_report=True)'s table with its frame and track
+     rows.  Prints the median ms of a frame.  (b) The stereo_lem row of
+     examples/evaluate_ntimes.py at its own size (640x480, 600 features,
+     4 levels, 360 frames of the figure-eight), seed 11, with a
+     viz.Viewer(every_n_kf=5) polling.  Bars: keyframe ATE after the final
+     GBA finite and < 0.05 m, a viewer PNG read back with drawn pixels.
+     Prints the row's numbers beside ACCURACY_r05.json's means.  (c)
+     extract_orb_batch of phase 5's stereo pair under ORB_BATCHED_SELECT
+     off, on and concat: equal in every field; the median ms of each.
+     (d) mutual_filter on the card equal to the CPU.  (e) entry(): the
+     frontend step's outputs finite, B1 and B2 once, B3 and B4 launched.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -192,36 +213,19 @@ WORLD = dict(n_landmarks=1800, seed=3, extent=(6.0, 4.5, 3.0))
 # of examples/evaluate_ntimes.py.
 MONO_WORLD = dict(n_landmarks=2200, seed=4, extent=(6.0, 4.5, 3.0))
 MONO_OMEGA = 0.35
-NOISE_SIGMA = 2.0
-# The place-recognition rows of examples/evaluate_ntimes.py: moving
-# landmarks, the blackout world and its 12 black frames, the loop world
-# and its 180-frame lap.
-DYNAMIC_FRAC = 0.02
-BLACKOUT_WORLD = dict(n_landmarks=2200, seed=4, extent=(6.0, 4.5, 3.0),
-                      dynamic_frac=DYNAMIC_FRAC)
-LOOP_WORLD = dict(n_landmarks=4000, seed=4, extent=(8.0, 6.0, 3.0),
-                  dynamic_frac=DYNAMIC_FRAC)
-LOOP_RADIUS = 1.5
-LOOP_FRAMES_PER_LAP = 180
 # Noise seeds of the stereo blackout phase: 0, and 11, the first run of
 # each row in evaluate_ntimes.py (seed0 + 7 * run), comparable with its
 # rows.  Seed 0 is the harder of the two at full width (§6 of PERF.md):
 # its closure raises the keyframe ATE and its recovered map keeps an
 # offset.  The stereo loop phase runs seed 0 alone (a seed-11 run and its
 # profiled closure took ~200 s of the script's time on the H100); the
-# host waits are profiled at seed 0 alone (the counts repeat across seeds).
+# host waits of a relocalization are profiled at seed 0 alone (the counts
+# repeat across seeds).
 PLACE_SEEDS = (0, 11)
 LOOP_SEED = PLACE_SEEDS[0]
-# The IMU of the VIO rows of examples/evaluate_ntimes.py: gyroscope and
-# accelerometer biases (noise 1e-4 and 1e-3, seed `seed + 100`).
-VIO_BG = np.array([0.01, -0.02, 0.015], np.float32)
-VIO_BA = np.array([0.05, 0.03, -0.04], np.float32)
 # Phase 15's final-acceptance span of the VI init (the rows' 15 s needs
 # more frames than the 60 of stereo_vio): past it the PRV window BA runs.
 VIO_ASYNC_FINAL_SPAN = 4.0
-# The KB8 rig of the multicam rows of examples/evaluate_ntimes.py.
-RIG_FX = 400.0
-KB8_DIST = [0.02, 0.002, -0.001, 0.0005]
 
 
 _T0 = time.perf_counter()
@@ -238,13 +242,12 @@ def fail(msg):
 
 
 def nvidia_smi():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0 or not out.stdout.strip():
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from vieo_slam_tpu_torch.utils import device
+
+    try:
+        return device.nvidia_smi()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        fail(str(e))
 
 
 # ---------------------------------------------------------------------------
@@ -769,11 +772,6 @@ def check_rig_kernels(torch, dev, rig, images, cfg):
 # ---------------------------------------------------------------------------
 
 
-def gain_bias(t):
-    """Slow brightness drift of examples/evaluate_ntimes.py."""
-    return 1.0 + 0.10 * np.sin(0.5 * t), 8.0 * np.sin(0.3 * t)
-
-
 def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
                  slab=4096, profile_from=None, sensor="stereo",
                  world_cfg=None, omega=0.25, hardened=False,
@@ -789,6 +787,7 @@ def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
     torch.profiler, which is returned last (with its wall seconds)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
     from vieo_slam_tpu_torch.frontend import frame as fr
     from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
     from vieo_slam_tpu_torch.io.evaluate import ate
@@ -804,8 +803,8 @@ def run_sequence(torch, dev, width, n_features, n_levels, n_frames,
     for i in range(n_frames):
         kw = {}
         if hardened:
-            g, b = gain_bias(float(ts[i]))
-            kw = dict(noise_sigma=NOISE_SIGMA, gain=g, bias=b, rng=rng)
+            g, b = ev.gain_bias(float(ts[i]))
+            kw = dict(noise_sigma=ev.NOISE_SIGMA, gain=g, bias=b, rng=rng)
         if sensor == "stereo":
             images.append(world.render_stereo(cam, Rcw[i], tcw[i], BASELINE,
                                               **kw))
@@ -955,33 +954,6 @@ def host_waits(torch, fn):
                               "cudaMemcpyAsync", "cudaEventSynchronize")}
 
 
-def rig_cameras(width, n_cams):
-    """The KB8 rig of the multicam rows of examples/evaluate_ntimes.py
-    (fx 400, the principal point at the image centre): one horizontal pair
-    at the stereo baseline and, for 4 cameras, a second pair displaced by
-    half the baseline in y; and the undistorted geometry camera."""
-    from vieo_slam_tpu_torch.cameras import models as cm
-
-    offsets = [np.zeros(3), np.asarray([-BASELINE, 0, 0])]
-    if n_cams == 4:
-        offsets += [np.asarray([0, -0.5 * BASELINE, 0]),
-                    np.asarray([-BASELINE, -0.5 * BASELINE, 0])]
-    cams = [cm.make_kb8(RIG_FX, RIG_FX, width / 2.0, 240.0, KB8_DIST, width,
-                        480, Rcr=np.eye(3, dtype=np.float32),
-                        tcr=off.astype(np.float32)) for off in offsets]
-    geom = cm.make_pinhole(RIG_FX, RIG_FX, width / 2.0, 240.0, width, 480)
-    return cams, geom
-
-
-def encoder_extrinsic(Rwc, v_w):
-    """The rows' body-from-encoder rotation: x along the travel, z up, at
-    the first frame (constant on a differential-drive circle)."""
-    x_e = Rwc[0].T @ (v_w[0] / np.linalg.norm(v_w[0]))
-    z_e = Rwc[0].T @ np.array([0.0, 0.0, 1.0])
-    return np.stack([x_e, np.cross(z_e, x_e), z_e], axis=-1).astype(
-        np.float64)
-
-
 TUMVI_STYLE_YAML = """%YAML:1.0
 # A TUM-VI-style two-camera KB8 rig (Camera2.Trc: camera-from-rig).
 Camera.type: "KannalaBrandt8"
@@ -1049,36 +1021,31 @@ def rig_from_yaml(cams):
 
 
 def rig_images(rig):
-    """The rig's images of the first frame of the non-loop rows' world."""
+    """The rig's images of the first frame of the multicam rows."""
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
     from vieo_slam_tpu_torch.sim import world as sim
 
-    world = sim.SyntheticWorld(sim.WorldConfig(**BLACKOUT_WORLD))
-    Rwc, twc, _, _ = sim.circle_trajectory(np.zeros(1), radius=1.0,
-                                           omega=MONO_OMEGA,
-                                           look_outward=True)
-    Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
+    sc = ev.scenario("multicam_kb8", 1)
+    world = sim.SyntheticWorld(sc.world_cfg)
+    Rcw, tcw = sim.trajectory_to_tcw(sc.Rwc, sc.twc)
     return [world.render_view(c, c.Rcr @ Rcw[0], c.Rcr @ tcw[0] + c.tcr)
             for c in rig]
 
 
 def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
             profile=None, async_mapping=None, vio_cfg=None, cams=None):
-    """One row of examples/evaluate_ntimes.py through the port's frame
-    builder + System.track_frame with a LoopCloser attached, images
-    rendered frame by frame: stereo_blackout, stereo_loop, stereo_async
-    (the 60-frame circle with the async mapping worker), stereo_vio,
-    vio_blackout or vio_loop (the same through a VioFrontend fed the row's
-    IMU stream), vieo (stereo_vio with the wheel encoder), veo (an
-    EncoderFrontend fed the row's wheel speeds; veo_blackout with the
-    blackout's black frames), multicam_kb8 / multicam4_kb8 (the KB8 rig of
-    2 / 4 cameras through build_multicam_frame, or `cams` = (rig, geometry
-    camera)) and map_reuse (the map saved at 3/5 of the run and loaded
-    into a fresh System, which must relocalize against it).
+    """One row of the port's evaluate_ntimes.py at full width, driven
+    frame by frame by its `Row` (the one copy of the rows), with the
+    diagnostics of this script around it: stereo_blackout, stereo_loop,
+    stereo_async, stereo_vio, vio_blackout, vio_loop, vieo, veo /
+    veo_blackout, multicam_kb8 / multicam4_kb8 (or the rig `cams` = (rig,
+    geometry camera)) and map_reuse, 360 frames for a loop row and 60
+    otherwise.
     Returns a dict of the system (and the front end), the states, the
     ATEs, the launches counted and the host seconds spent inside the
     relocalization calls, inside loop_closer.process_keyframe and inside
     its candidate verification (_try_close), the inputs of the last
-    recovery frame, the state before the first closure, the frame where
+    recovery frame, the frame where
     the VI initialization took, the frames the encoder fused, the rig's
     per-view triangulation stats a frame and the ms of save_map and
     load_map.  `profile` = (first, last) runs those frames under
@@ -1089,92 +1056,25 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from vieo_slam_tpu_torch.backend.loop_closing import (
-        LoopCloser, LoopClosingConfig)
-    from vieo_slam_tpu_torch.cameras import models as cm
-    from vieo_slam_tpu_torch.frontend import frame as fr
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
     from vieo_slam_tpu_torch.frontend import relocalization
-    from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
     from vieo_slam_tpu_torch.io.evaluate import ate
-    from vieo_slam_tpu_torch.ops import cuda_build, orb
-    from vieo_slam_tpu_torch.sim import world as sim
-    from vieo_slam_tpu_torch.system import System, SystemConfig
+    from vieo_slam_tpu_torch.ops import cuda_build
+    from vieo_slam_tpu_torch.system import System
     from vieo_slam_tpu_torch.utils.metrics import metrics
-    from vieo_slam_tpu_torch.vio.encoder_frontend import (
-        EncoderConfig, EncoderFrontend)
-    from vieo_slam_tpu_torch.vio.frontend import VioConfig, VioFrontend
 
-    loop = row.endswith("_loop")
-    vio = row in ("stereo_vio", "vio_blackout", "vio_loop", "vieo")
-    veo = row.startswith("veo")
-    multicam = row.startswith("multicam")
-    n = 2 * LOOP_FRAMES_PER_LAP if loop else 60
-    reuse_at = 3 * n // 5 if row == "map_reuse" else -1
-    if multicam:
-        rig, cam = cams or rig_cameras(width, 4 if row == "multicam4_kb8"
-                                       else 2)
-    else:
-        s = width / 640.0
-        cam = cm.make_pinhole(400.0 * s, 400.0 * s, width / 2.0, 240.0,
-                              width, 480)
-    bf = cam.fx * BASELINE
-    ts = np.arange(n) * 0.1
-    if loop:
-        world = sim.SyntheticWorld(sim.WorldConfig(**LOOP_WORLD))
-        Rwc, twc, v_w, a_w = sim.circle_trajectory(
-            ts, radius=LOOP_RADIUS,
-            omega=2 * np.pi / (LOOP_FRAMES_PER_LAP * 0.1), look_outward=True)
-    else:
-        world = sim.SyntheticWorld(sim.WorldConfig(**BLACKOUT_WORLD))
-        Rwc, twc, v_w, a_w = sim.circle_trajectory(
-            ts, radius=1.0, omega=MONO_OMEGA, look_outward=True)
-    bo = (3 * n // 5, 3 * n // 5 + 12) if row.endswith("_blackout") \
-        else (-1, -1)
-    Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
-    cfg = orb.OrbConfig(n_features=n_features, n_levels=n_levels)
-    rng = np.random.RandomState(seed)       # the photometric noise
-
+    n = 2 * ev.LOOP_FRAMES_PER_LAP if row.endswith("_loop") else 60
     metrics.reset()
-    if async_mapping is None:
-        async_mapping = row == "stereo_async"
-
-    def new_system():
-        system = System(cam, bf, SystemConfig(
-            tracker=TrackerConfig(use_predicted_scale=True),
-            async_mapping=async_mapping), device=dev)
-        system.loop_closer = LoopCloser(
-            cam, bf, system.map,
-            LoopClosingConfig(min_kf_gap=30 if loop else 8, fix_scale=True),
-            device=dev)
-        return system
-
-    system = new_system()
-    front, imu, enc = system, None, None
-    if veo or row == "vieo":
-        Rbe = encoder_extrinsic(Rwc, v_w)
-        enc = sim.make_encoder_samples(
-            ts, Rwc.astype(np.float64), twc.astype(np.float64), Rbe,
-            np.zeros(3), rate_hz=100.0, half_track=0.28, noise_v=2e-3,
-            seed=seed + 200)
-        enc_cfg = dict(enc_half_track=0.28, enc_sigma_v=5e-3, enc_Rbe=Rbe,
-                       enc_tbe=np.zeros(3))
-    if veo:
-        front = EncoderFrontend(system, cfg=EncoderConfig(**enc_cfg))
-    if vio:
-        imu = sim.make_imu_samples(ts, Rwc.astype(np.float64), v_w, a_w,
-                                   rate_hz=200.0, bg=VIO_BG, ba=VIO_BA,
-                                   noise_g=1e-4, noise_a=1e-3,
-                                   seed=seed + 100)
-        front = VioFrontend(system, cfg=VioConfig(**{
-            "init_min_kfs": 10, "init_min_span": 3.0,
-            **(dict(use_encoder=True, **enc_cfg) if enc else {}),
-            **(vio_cfg or {})}))
+    r = ev.Row(row, seed, n, dev, width, n_features, n_levels,
+            async_mapping=async_mapping, vio_cfg=vio_cfg, rig=cams)
+    sc, front = r.sc, r.front
+    vio = sc.base in ("stereo_vio", "vieo")
     fused_at = []
-    if veo:
+    if sc.base == "veo":
         fuse = front._fuse
 
         def fuse_counted(frame):
-            fused_at.append(len(states))
+            fused_at.append(len(r.states))
             return fuse(frame)
 
         front._fuse = fuse_counted
@@ -1187,20 +1087,6 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
             return step(k)
 
         front._backend_worker_step = worker_step
-
-    def kf_ate(t_min=-1.0):
-        """Keyframe ATE of the keyframes after t_min, their timestamps
-        rounded to f32 as evaluate_ntimes.py keeps them (x64 off) and
-        compared in f64 (a Python float beside an f32 array would be
-        rounded to f32 too)."""
-        m = system.map
-        kfs = m.keyframe_ids()
-        t_kf = m.kf_timestamp[kfs].astype(np.float32).astype(np.float64)
-        kfs = kfs[t_kf > t_min]
-        if len(kfs) < 2:        # as evaluate_ntimes.py
-            return float("nan")
-        p = np.stack([-(m.kf_Rcw[k].T @ m.kf_tcw[k]) for k in kfs])
-        return ate(m.kf_timestamp[kfs], p, ts, twc)["rmse"]
 
     inside = {"reloc": {}, "loop": {}, "verify": {}}
     # (host seconds, result) of each wrapped call
@@ -1221,100 +1107,46 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
                     acc[k] = acc.get(k, 0) + v - before[k]
         return wrapped
 
-    reloc_orig = relocalization.try_relocalize
-    relocalization.try_relocalize = counted("reloc", reloc_orig)
-    # The ATE around each closure, and the state before the first one, to
-    # replay it under the profiler.  _try_close changes nothing before it
-    # calls _correct_loop, so the copy taken here is the state its call
-    # started from.  This hook runs inside the loop-closing stage timer:
-    # its own seconds are kept and taken out of the times reported.
-    closures, replay, hook_s = [], {}, []
+    reuse_ms = {}
+
+    def timed(name, fn):
+        def wrapped(system, path):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(system, path)
+            torch.cuda.synchronize()
+            reuse_ms[name] = 1e3 * (time.perf_counter() - t0)
+            return out
+        return wrapped
 
     def instrument(lc):
         lc.process_keyframe = counted("loop", lc.process_keyframe)
         lc._try_close = counted("verify", lc._try_close)
-        correct_orig = lc._correct_loop
 
-        def correct_hooked(k, c, S_ck):
-            t0 = time.perf_counter()
-            if not replay:
-                replay.update(k=k, c=c, state=(
-                    system.map.copy(), lc.db.bows.copy(),
-                    lc.db.present.copy(), dict(lc.kf_bow), lc.last_loop_kf,
-                    list(lc.loop_edges)))
-            pre = kf_ate()
-            dt = time.perf_counter() - t0
-            correct_orig(k, c, S_ck)
-            t0 = time.perf_counter()
-            closures.append((k, c, pre, kf_ate()))
-            hook_s.append(dt + time.perf_counter() - t0)
-
-        lc._correct_loop = correct_hooked
-
-    instrument(system.loop_closer)
-    states, frame_s, recovered_at, last_frame = [], [], None, None
-    init_at, i_imu, i_enc, view_stats, reuse_ms = None, 0, 0, [], {}
-    prof, prof_s, profiled = None, 0.0, None
+    patched = [(relocalization, "try_relocalize",
+                counted("reloc", relocalization.try_relocalize)),
+               (System, "save_map", timed("save_map", System.save_map)),
+               (System, "load_map", timed("load_map", System.load_map))]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
+    frame_s, recovered_at, last_frame, init_at = [], None, None, None
+    prof, prof_s, profiled, instrumented = None, 0.0, None, None
     t_run = time.perf_counter()
     try:
         for i in range(n):
-            t = float(ts[i])
-            if i == reuse_at:
-                # Map reuse: save the map, then a fresh System and
-                # LoopCloser load it and go on.
-                fd, path = tempfile.mkstemp(suffix=".npz")
-                os.close(fd)
-                t0 = time.perf_counter()
-                system.save_map(path)
-                reuse_ms["save_map"] = 1e3 * (time.perf_counter() - t0)
-                system.shutdown()
-                system = front = new_system()
-                instrument(system.loop_closer)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                system.load_map(path)
-                torch.cuda.synchronize()
-                reuse_ms["load_map"] = 1e3 * (time.perf_counter() - t0)
-                os.unlink(path)
-            if imu is not None:
-                while i_imu < len(imu[0]) and imu[0][i_imu] <= t:
-                    front.track_odom(imu[0][i_imu], imu[1][i_imu],
-                                     imu[2][i_imu])
-                    i_imu += 1
-            if enc is not None:
-                while i_enc < len(enc[0]) and enc[0][i_enc] <= t:
-                    front.track_encoder(enc[0][i_enc], enc[1][i_enc],
-                                        enc[2][i_enc])
-                    i_enc += 1
-            g, b = gain_bias(t)
-            hard = dict(t=t, noise_sigma=NOISE_SIGMA, gain=g, bias=b, rng=rng)
-            if multicam:
-                images = [world.render_view(c, c.Rcr @ Rcw[i],
-                                            c.Rcr @ tcw[i] + c.tcr, **hard)
-                          for c in rig]
-            else:
-                images = world.render_stereo(cam, Rcw[i], tcw[i], BASELINE,
-                                             **hard)
-            if bo[0] <= i < bo[1]:
-                images = [np.zeros_like(x) for x in images]
+            images = r.prepare(i)
+            if r.system is not instrumented:       # new, or the map reused
+                instrument(r.system.loop_closer)
+                instrumented = r.system
             if profile is not None and i == profile[0]:
                 prof = torch_profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA])
                 prof.__enter__()
+            n_reloc = metrics.counters.get("reloc_success", 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            images = [torch.from_numpy(x).to(dev) for x in images]
-            if multicam:
-                frame, pv = fr.build_multicam_frame(
-                    images, rig, cfg, geom_cam=cam, virt_bf=bf,
-                    max_depth=15.0, timestamp=t, return_stats=True,
-                    device=dev)
-            else:
-                frame = fr.build_stereo_frame(
-                    *images, cfg, bf=bf, min_depth=0.3, max_depth=15.0,
-                    timestamp=t, device=dev)
-            n_reloc = metrics.counters.get("reloc_success", 0)
-            states.append(front.track_frame(frame).name)
+            r.track(i, images)
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
             if prof is not None:
@@ -1322,62 +1154,36 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
                 if i == profile[1] - 1:
                     prof.__exit__(None, None, None)
                     prof, profiled = None, prof
-            if vio and front.inited and init_at is None:
+            if vio and r.front.inited and init_at is None:
                 init_at = i
-            if multicam:
-                view_stats.append([(float(v["matches"]),
-                                    float(v["accepted"]),
-                                    float(v["mean_err2"])) for v in pv])
             if metrics.counters.get("reloc_success", 0) > n_reloc:
                 if recovered_at is None:
                     recovered_at = i
-                last_frame = frame
-        system.wait_idle()
+                last_frame = r.frame
+        r.system.wait_idle()
     finally:
-        relocalization.try_relocalize = reloc_orig
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    pre_gba = kf_ate()
-    system.final_global_ba()
-    traj = system.tracker.trajectory
+    res = r.finish()
+    traj = r.system.tracker.trajectory
     poses = np.asarray([-(R.T @ t) for _, R, t, _ in traj])
-    out = dict(system=system, front=front, states=states, n=n, ts=ts,
-               twc=twc, bo=bo, recovered_at=recovered_at,
-               last_frame=last_frame, inside=inside, spent=spent,
-               hook_s=hook_s, closures=closures, replay=replay, run_s=run_s,
-               frame_s=frame_s, init_at=init_at,
-               window_ba_threads=window_ba_threads,
-               ate_track=ate(np.asarray([x[0] for x in traj]), poses, ts,
-                             twc)["rmse"],
-               ate_no_gba=pre_gba, ate_gba=kf_ate(),
-               # As evaluate_ntimes.py: the keyframes after the first lit
-               # frame's time, or after the map was loaded (in f32, the
-               # keyframe of the first lit frame is in: f32(4.8) > 4.8).
-               ate_post_recovery=kf_ate(float(ts[bo[1]])) if bo[1] > 0
-               else kf_ate(float(ts[reuse_at])) if reuse_at > 0 else None,
-               reuse_at=reuse_at, reuse_ms=reuse_ms, fused_at=fused_at,
-               view_stats=np.asarray(view_stats), report=metrics.report(),
-               profile=None if profiled is None else
-               (profiled, prof_s, profile[1] - profile[0]))
-    system.shutdown()
-    return out
-
-
-def replay_closure(lc, replay):
-    """_try_close of the first closure again, by a fresh LoopCloser over a
-    copy of the map and of the closer's state from just before it."""
-    from vieo_slam_tpu_torch.backend.loop_closing import LoopCloser
-    from vieo_slam_tpu_torch.loop.keyframe_db import KeyFrameDatabase
-
-    m, bows, present, kf_bow, last_loop_kf, loop_edges = replay["state"]
-    lc2 = LoopCloser(lc.cam, lc.bf, m, lc.cfg, vocabulary=lc.voc,
-                     device=lc.device)
-    lc2.db = KeyFrameDatabase(bows.shape[1], bows.shape[0])
-    lc2.db.bows, lc2.db.present = bows.copy(), present.copy()
-    lc2.kf_bow = dict(kf_bow)
-    lc2.last_loop_kf = last_loop_kf
-    lc2.loop_edges = list(loop_edges)
-    return lc2._try_close(replay["k"], replay["c"])
+    return dict(system=r.system, front=r.front, states=r.states, n=n,
+                ts=sc.ts, twc=sc.twc, bo=sc.bo, recovered_at=recovered_at,
+                last_frame=last_frame, inside=inside, spent=spent,
+                hook_s=r.hook_s, closures=r.lc_events, run_s=run_s,
+                frame_s=frame_s, init_at=init_at,
+                window_ba_threads=window_ba_threads,
+                ate_track=ate(np.asarray([x[0] for x in traj]), poses,
+                              sc.ts, sc.twc)["rmse"],
+                ate_no_gba=res["rmse_noFullBA"], ate_gba=res["rmse_fullBA"],
+                ate_post_recovery=res.get("rmse_postRecovery"),
+                reuse_at=sc.reuse_at, reuse_ms=reuse_ms, fused_at=fused_at,
+                view_stats=np.asarray(r.view_stats), report=metrics.report(),
+                numbers=res,
+                profile=None if profiled is None else
+                (profiled, prof_s, profile[1] - profile[0]))
 
 
 def graph_error(torch, g):
@@ -1509,6 +1315,7 @@ def rig_encoder_reuse_phases(torch, dev, launches_place, stereo_vio_ate):
     blackout, VIEO and map reuse, each at full width with its launches
     counted into `launches_place`.  Returns the rig kernel cases of phase
     17 (B1/B2 over 32 entries, B3 under the epipolar masks)."""
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
     from vieo_slam_tpu_torch.ops import cuda_build
 
     vio_path = ("fast_nms_blend", "gather_patches", "fused_best2",
@@ -1518,7 +1325,7 @@ def rig_encoder_reuse_phases(torch, dev, launches_place, stereo_vio_ate):
     for phase, row, n_cams in ((16, "multicam_kb8", 2),
                                (17, "multicam4_kb8", 4)):
         tag = f"[{phase} {row}, seed 0]"
-        cams = rig_cameras(752, n_cams)
+        cams = ev.rig_cameras(752, n_cams)
         if n_cams == 2:
             cams = rig_from_yaml(cams)
             log(f"{tag} the rig parsed from a TUM-VI-style YAML by "
@@ -1612,7 +1419,7 @@ def rig_encoder_reuse_phases(torch, dev, launches_place, stereo_vio_ate):
     after = 1e3 * np.asarray(out["frame_s"][(out["init_at"] or 0) + 1:])
     log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels: VI init "
         f"at frame {out['init_at']}, |g| {np.linalg.norm(vio.gw):.4f}, bg "
-        f"{vio.bg} (true {VIO_BG}); LOST {states.count('LOST')}; keyframe "
+        f"{vio.bg} (true {ev.VIO_BG}); LOST {states.count('LOST')}; keyframe "
         f"ATE {out['ate_no_gba']:.5f} m (phase 12, stereo_vio: "
         f"{stereo_vio_ate:.5f} m); {vio.enc_ring.size()} wheel "
         f"samples; whole frame after the init median "
@@ -1629,7 +1436,7 @@ def rig_encoder_reuse_phases(torch, dev, launches_place, stereo_vio_ate):
         + [(f"the preintegration of {g.inputs[0].shape[0]} samples", g)
            for g in list(vio._preint.graphs.values())[:1]])
     if not vio.inited or abs(np.linalg.norm(vio.gw) - 9.81) > 0.05 \
-            or np.abs(vio.bg - VIO_BG).max() > 1.2e-2 \
+            or np.abs(vio.bg - ev.VIO_BG).max() > 1.2e-2 \
             or states.count("LOST") or not out["ate_no_gba"] < 0.02:
         fail("vieo misses its bars")
 
@@ -1960,6 +1767,285 @@ def distributed_gba_phase(torch, dev, run):
     return launches
 
 
+# Phase 22's EuRoC-style sequence: the stereo_blackout row's world and
+# circle (no blackout) seen by a 752x480 EuRoC-like camera at 20 Hz (fx
+# 458.654, cam0's principal point, a 0.11 m baseline), written as a
+# mav0/ folder with PNG images, 200 Hz IMU and ground truth, and read back
+# through examples/run_euroc.py with this settings file.
+EUROC_FRAMES = 40
+EUROC_T0_NS = 1403636579763555584          # MH_01's first image stamp
+EUROC_DT = 0.05
+EUROC_FX, EUROC_CX, EUROC_CY, EUROC_BASELINE = 458.654, 367.215, 248.375, 0.11
+EUROC_STYLE_YAML = """%YAML:1.0
+# A EuRoC-style stereo settings file (rectified pinhole pair).
+Camera.type: "PinHole"
+Camera.fx: {fx}
+Camera.fy: {fx}
+Camera.cx: {cx}
+Camera.cy: {cy}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20.0
+Camera.bf: {bf}
+Camera.RGB: 1
+ThDepth: 35.0
+ORBextractor.nFeatures: 1200
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+# The trace of frames [30, 33) must show these kernels on the card (a
+# template argument tells B3 from B4).
+TRACE_KERNELS = {"fast_nms_blend": "fast_nms_blend_kernel",
+                 "gather_patches": "gather_patches_kernel",
+                 "fused_best2": "best2_kernel<false>",
+                 "fused_projection_best2": "best2_kernel<true>"}
+TRACE_FRAMES = (30, 33)
+
+
+def write_euroc_folder(root):
+    """The phase-22 sequence as a EuRoC mav0/ folder under `root`; returns
+    the settings file's path."""
+    from vieo_slam_tpu_torch.cameras import models as cm
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
+    from vieo_slam_tpu_torch.io.png import write_png
+    from vieo_slam_tpu_torch.io.serialization import quat_wxyz
+    from vieo_slam_tpu_torch.sim import world as sim
+
+    sc = ev.scenario("stereo_blackout", EUROC_FRAMES)
+    world = sim.SyntheticWorld(sc.world_cfg)
+    ts = np.arange(EUROC_FRAMES) * EUROC_DT
+    Rwc, twc, v_w, a_w = sim.circle_trajectory(ts, radius=1.0,
+                                               omega=MONO_OMEGA,
+                                               look_outward=True)
+    Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
+    cam = cm.make_pinhole(EUROC_FX, EUROC_FX, EUROC_CX, EUROC_CY, 752, 480)
+    mav = Path(root) / "mav0"
+    ns = [EUROC_T0_NS + int(round(t * 1e9)) for t in ts]
+    rng = np.random.RandomState(0)
+    for c in ("cam0", "cam1"):
+        (mav / c / "data").mkdir(parents=True)
+        (mav / c / "data.csv").write_text(
+            "#timestamp [ns],filename\n"
+            + "".join(f"{t},{t}.png\n" for t in ns))
+    for i, t in enumerate(ns):
+        g, b = ev.gain_bias(float(ts[i]))
+        pair = world.render_stereo(cam, Rcw[i], tcw[i], EUROC_BASELINE,
+                                   t=float(ts[i]), noise_sigma=ev.NOISE_SIGMA,
+                                   gain=g, bias=b, rng=rng)
+        for c, img in zip(("cam0", "cam1"), pair):
+            write_png(str(mav / c / "data" / f"{t}.png"),
+                      np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    t_imu, gyro, acc = sim.make_imu_samples(ts, Rwc.astype(np.float64), v_w,
+                                            a_w, rate_hz=200.0)
+    (mav / "imu0").mkdir()
+    (mav / "imu0" / "data.csv").write_text(
+        "#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n" + "".join(
+            f"{EUROC_T0_NS + int(round(t * 1e9))},"
+            + ",".join(f"{x:.9f}" for x in (*w, *a)) + "\n"
+            for t, w, a in zip(t_imu, gyro, acc)))
+    (mav / "state_groundtruth_estimate0").mkdir()
+    (mav / "state_groundtruth_estimate0" / "data.csv").write_text(
+        "#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z\n" + "".join(
+            f"{t}," + ",".join(f"{x:.9f}" for x in (*p, *quat_wxyz(R)))
+            + "\n" for t, p, R in zip(ns, twc.astype(np.float64), Rwc)))
+    path = Path(root) / "euroc_stereo.yaml"
+    path.write_text(EUROC_STYLE_YAML.format(
+        fx=EUROC_FX, cx=EUROC_CX, cy=EUROC_CY,
+        bf=EUROC_FX * EUROC_BASELINE))
+    return str(path)
+
+
+def trace_kernel_names(path):
+    """The names of the CUDA kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def supporting_code_phase(torch, dev, launches_place):
+    """Phase 22: run_euroc on a EuRoC folder at full width with a trace
+    of three frames, the stereo_lem row with the viewer polling, the
+    three keypoint selection paths, mutual_filter and entry() on the
+    card.  Counts launches of (a) and (b) into `launches_place`."""
+    import contextlib
+    import io
+
+    from vieo_slam_tpu_torch.entry import entry
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
+    from vieo_slam_tpu_torch.examples import run_euroc
+    from vieo_slam_tpu_torch.io.euroc import load_euroc
+    from vieo_slam_tpu_torch.io.evaluate import ate
+    from vieo_slam_tpu_torch.io.png import read_png
+    from vieo_slam_tpu_torch.ops import cuda_build, matching, orb
+    from vieo_slam_tpu_torch.system import System
+    from vieo_slam_tpu_torch.utils.metrics import metrics, trace
+    from vieo_slam_tpu_torch.viz import Viewer
+
+    t_phase = time.perf_counter()
+    # (a) run_euroc at 752x480 from a EuRoC folder and settings file
+    tag = "[22a run_euroc]"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        settings = write_euroc_folder(tmp)
+        write_s = time.perf_counter() - t0
+        states, ends, tracing = [], [], []
+        track = System.track_frame
+        trace_dir = os.path.join(tmp, "trace")
+
+        def traced(system, frame):
+            i = len(states)
+            if i == TRACE_FRAMES[0]:
+                tracing.append(trace(trace_dir))
+                tracing[0].__enter__()
+            st = track(system, frame)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            states.append(st.name)
+            if i == TRACE_FRAMES[1] - 1:
+                tracing[0].__exit__(None, None, None)
+            return st
+
+        out = os.path.join(tmp, "traj.txt")
+        metrics.reset()
+        cuda_build.reset_launches()
+        System.track_frame = traced
+        try:
+            system = run_euroc.main([tmp, settings, "--out", out,
+                                     "--device", str(dev)])
+        finally:
+            System.track_frame = track
+        launches_place["euroc_full_width", None] = dict(cuda_build.LAUNCHES)
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            system.shutdown(print_report=True)
+        table = report.getvalue()
+        print(table, flush=True)
+        rows = {line.split()[0] for line in table.splitlines() if line}
+        traj = np.loadtxt(out, ndmin=2)
+        seq = load_euroc(tmp)
+        res = ate(traj[:, 0], traj[:, 1:4], seq.t_gt, seq.p_gt)
+        names = trace_kernel_names(os.path.join(trace_dir, "trace.json"))
+    # the frame period of the run, after 5 warm-up frames, outside the
+    # traced frames and the trace's export
+    period = [1e3 * (ends[i] - ends[i - 1]) for i in range(6, len(ends))
+              if not TRACE_FRAMES[0] <= i <= TRACE_FRAMES[1]]
+    seen = {k: sorted(n for n in names if v in n)
+            for k, v in TRACE_KERNELS.items()}
+    log(f"{tag} {len(states)} frames of a EuRoC folder (752x480 PNGs "
+        f"written in {write_s:.1f} s) through run_euroc.main: LOST "
+        f"{states.count('LOST')}, {len(traj)} trajectory lines, ATE RMSE "
+        f"{res['rmse']:.5f} m against the ground truth; frame median "
+        f"{np.median(period):.2f} ms (load, build, track); launches "
+        f"{launches_place['euroc_full_width', None]}; CUDA kernels in the "
+        f"trace of frames {TRACE_FRAMES[0]}-{TRACE_FRAMES[1] - 1}: "
+        f"{len(names)} names, of them "
+        + "; ".join(f"{k}: {v}" for k, v in seen.items())
+        + f"; all best2 names: {sorted(n for n in names if 'best2' in n)}")
+    if states.count("LOST") or len(traj) != EUROC_FRAMES \
+            or not res["rmse"] < 0.02:
+        fail(f"{tag} misses its bars")
+    if not all(seen.values()):
+        fail(f"{tag} the trace lacks kernels: "
+             f"{[k for k, v in seen.items() if not v]}")
+    if not {"frame", "track"} <= rows:
+        fail(f"{tag} the report lacks the frame and track rows")
+    check_counts(tag, launches_place["euroc_full_width", None],
+                 {"fast_nms_blend": EUROC_FRAMES,
+                  "gather_patches": EUROC_FRAMES, "tail_fused": 0},
+                 ("fused_best2", "fused_projection_best2"))
+
+    # (b) the stereo_lem row at its own size with the viewer polling
+    tag = "[22b stereo_lem, seed 11]"
+    t0 = time.perf_counter()
+    n = 2 * ev.LOOP_FRAMES_PER_LAP
+    cuda_build.reset_launches()
+    row = ev.Row("stereo_lem", 11, n, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        viewer = Viewer(tmp, every_n_kf=5)
+        drawn = []
+        for i in range(n):
+            row.step(i)
+            p = viewer.poll(row.system)
+            if p is not None:
+                drawn.append(p)
+        got = row.finish()
+        pngs = [read_png(p) for p in drawn]
+    launches_place["stereo_lem", None] = dict(cuda_build.LAUNCHES)
+    ref = json.loads((ROOT / "ACCURACY_r05.json").read_text())[
+        "scenarios"]["stereo_lem"]
+    last = (pngs[-1][0].shape, pngs[-1][1].get("Title")) if pngs else None
+    log(f"{tag} {n} frames 640x480, 600 features, 4 levels in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.5g} (ACCURACY_r05 mean "
+                    f"{ref.get('avg_' + k, float('nan')):.5g})"
+                    for k, v in got.items())
+        + f"; {len(drawn)} viewer PNGs, the last {last}; launches "
+        f"{launches_place['stereo_lem', None]}")
+    if not (np.isfinite(got["rmse_fullBA"]) and got["rmse_fullBA"] < 0.05):
+        fail(f"{tag} keyframe ATE {got['rmse_fullBA']} misses 0.05 m")
+    if not any((pix != 255).any() for pix, _ in pngs):
+        fail(f"{tag} no viewer PNG with a drawn pixel")
+
+    # (c) extract_orb_batch of phase 5's stereo pair, three selection paths
+    tag = "[22c selection]"
+    cam, _, world, _, Rcw, tcw, _ = scene(1, 752)
+    pair = torch.from_numpy(np.stack(world.render_stereo(
+        cam, Rcw[0], tcw[0], BASELINE))).to(dev)
+    cfg = orb.OrbConfig(n_features=1200, n_levels=8)
+    mode0, feats, ms = orb.BATCHED_SELECT_MODE, {}, {}
+    try:
+        for mode in ("off", "on", "concat"):
+            orb.BATCHED_SELECT_MODE = mode
+            feats[mode] = orb.extract_orb_batch(pair, cfg, device=dev)
+            ms[mode] = time_ms(torch, lambda: orb.extract_orb_batch(
+                pair, cfg, device=dev), reps=20)
+    finally:
+        orb.BATCHED_SELECT_MODE = mode0
+    same = {m: all(torch.equal(a, b) for a, b in zip(feats["off"], feats[m]))
+            for m in ("on", "concat")}
+    log(f"{tag} extract_orb_batch of a 752x480 stereo pair, 1200 features, "
+        f"8 levels, median ms: per level {ms['off']:.3f}, batched "
+        f"{ms['on']:.3f}, concat {ms['concat']:.3f}; equal in every field "
+        f"to the per-level path: {same}")
+    if not all(same.values()):
+        fail(f"{tag} a selection path differs from the per-level path")
+
+    # (d) mutual_filter on the card against the CPU, with ties and invalid
+    # rows
+    g = torch.Generator(device="cpu").manual_seed(0)
+    na, nb = 1200, 900
+    best = torch.randint(-1, nb // 3, (na,), generator=g, dtype=torch.int32)
+    valid = (torch.rand(na, generator=g) < 0.8) & (best >= 0)
+    want = matching.mutual_filter(best, na, nb, valid)
+    got_d = matching.mutual_filter(best.to(dev), na, nb, valid.to(dev))
+    log(f"[22d mutual_filter] {na} rows onto {nb // 3} columns: "
+        f"{int(want.sum())} kept, the card equal to the CPU: "
+        f"{torch.equal(got_d.cpu(), want)}")
+    if not torch.equal(got_d.cpu(), want):
+        fail("mutual_filter on the card differs from the CPU")
+
+    # (e) entry(): the frontend step on its own inputs
+    fn, args = entry(dev)
+    cuda_build.reset_launches()
+    outs = fn(*args)
+    torch.cuda.synchronize()
+    ok = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    log(f"[22e entry] frontend step at 752x480: {int(outs[2])} inliers, "
+        f"outputs finite {ok}, launches {dict(cuda_build.LAUNCHES)}")
+    check_counts("[22e entry]", cuda_build.LAUNCHES,
+                 {"fast_nms_blend": 1, "gather_patches": 1},
+                 ("fused_best2", "fused_projection_best2"))
+    if not ok:
+        fail("entry()'s outputs are not finite")
+    log(f"[22 supporting code] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -1973,6 +2059,7 @@ def main():
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
     from vieo_slam_tpu_torch.ops import cuda_build
 
     # 1. device
@@ -2225,14 +2312,6 @@ def main():
             > 0):
         fail(f"loop closing did not launch B3 and B4: "
              f"{lp['inside']['loop']}")
-    closed, waits = host_waits(
-        torch, lambda: replay_closure(lc, lp["replay"]))
-    log(f"{tag} host waits of one closure (keyframe "
-        f"{lp['replay']['k']} to {lp['replay']['c']} replayed on a copy "
-        f"of the map before it, {'closed' if closed else 'not closed'}):"
-        f" {waits}")
-    if not closed:
-        fail("the replayed closure did not close")
     # 11. stereo async: phase 5's cell with the mapping worker behind
     # tracking, free-running and in lockstep
     t0 = time.perf_counter()
@@ -2291,7 +2370,7 @@ def main():
         log(f"{tag} {out['n']} frames 752x480, 1200 features, 8 levels: "
             f"VI init at frame {out['init_at']} (final: {vio.final_inited}), "
             f"|g| {np.linalg.norm(vio.gw):.4f}, bg {vio.bg} (true "
-            f"{VIO_BG}), ba {vio.ba} (true {VIO_BA}); LOST "
+            f"{ev.VIO_BG}), ba {vio.ba} (true {ev.VIO_BA}); LOST "
             f"{states.count('LOST')}, ODOMOK {n_odomok}, relocalizations "
             f"{n_reloc}; ATE RMSE of the tracked frames "
             f"{out['ate_track']:.5f} m, keyframe ATE without / with the "
@@ -2323,7 +2402,7 @@ def main():
                         f"IMU); device busy {p12['busy_ms']:.2f} against "
                         f"{prof8['busy_ms']:.2f} ms a frame")
             if not vio.inited or abs(np.linalg.norm(vio.gw) - 9.81) > 0.05 \
-                    or np.abs(vio.bg - VIO_BG).max() > 1.2e-2 or lost \
+                    or np.abs(vio.bg - ev.VIO_BG).max() > 1.2e-2 or lost \
                     or not out["ate_no_gba"] < 0.02:
                 fail("stereo_vio misses its bars")
         elif row == "vio_blackout":
@@ -2392,7 +2471,7 @@ def main():
     if states.count("LOST") or not vio.final_inited or not threads \
             or set(threads) != {"local-mapping"} or not on_worker \
             or abs(np.linalg.norm(vio.gw) - 9.81) > 0.05 \
-            or np.abs(vio.bg - VIO_BG).max() > 1.2e-2 \
+            or np.abs(vio.bg - ev.VIO_BG).max() > 1.2e-2 \
             or not out["ate_no_gba"] < 0.02:
         fail("stereo_vio async misses its bars")
 
@@ -2417,6 +2496,9 @@ def main():
         f"(cuda_build.on_device): {guard_us:.3f} us a launch, "
         f"{1e-3 * guard_us * n_counted:.2f} ms over the {n_counted} "
         f"launches counted in this run")
+    # 22. supporting code: run_euroc from a EuRoC folder, the stereo_lem
+    # row with the viewer, the selection paths, mutual_filter, entry()
+    supporting_code_phase(torch, dev, launches_place)
 
     meta = {
         "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99",
@@ -2457,7 +2539,7 @@ def main():
                                  "survivors", "corners") if x in r},
             "rig": {case: r for case, r in rig_kernels.items()
                     if case.split()[0] == meta[k][2]}})
-    log(f"[done] phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-22 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ break their keyframe ATE down.
         --levels 8] [--rows stereo_blackout,stereo_loop]
 
 The rows are chip_smoke.py's phases 9 and 10 (the stereo_blackout and
-stereo_loop rows of examples/evaluate_ntimes.py); at --width 640
+stereo_loop rows of the port's evaluate_ntimes.py, driven frame by frame
+through its Row); at --width 640
 --features 600 --levels 4 they run at the JAX package's own row
 configuration.  For the blackout row the keyframes before the blackout
 are aligned to the ground truth alone, and the keyframes after the
@@ -31,8 +32,14 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402
+from vieo_slam_tpu_torch.examples.evaluate_ntimes import (  # noqa: E402
+    LOOP_FRAMES_PER_LAP, Row)
 from vieo_slam_tpu_torch.io.evaluate import associate, umeyama_alignment  # noqa: E402
+from vieo_slam_tpu_torch.utils.device import nvidia_smi  # noqa: E402
+from vieo_slam_tpu_torch.utils.metrics import metrics  # noqa: E402
+
+# Noise seeds of chip_smoke.py's phase 9: 0, and 11 (the rows' first run).
+PLACE_SEEDS = (0, 11)
 
 
 def kf_positions(system):
@@ -103,7 +110,7 @@ def main():
     ap.add_argument("--levels", type=int, default=8)
     ap.add_argument("--rows", default="stereo_blackout,stereo_loop")
     ap.add_argument("--seeds", default=",".join(
-                        str(x) for x in chip_smoke.PLACE_SEEDS),
+                        str(x) for x in PLACE_SEEDS),
                     help="noise seeds, comma-separated (the JAX package's "
                          "evaluate_ntimes.py runs 11, 18, 25)")
     args = ap.parse_args()
@@ -111,49 +118,43 @@ def main():
         print("place_recognition_rows: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    print(chip_smoke.nvidia_smi(), flush=True)
+    print(nvidia_smi(), flush=True)
     size = (f"{args.width}x480, {args.features} features, {args.levels} "
             f"levels")
     relocs = trace_relocalization()
     for row, seed in ((r, int(x)) for r in args.rows.split(",")
                       for x in args.seeds.split(",")):
         relocs.clear()
-        out = chip_smoke.run_row(
-            torch, dev, row, seed, width=args.width,
-            n_features=args.features, n_levels=args.levels)
-        system, states = out["system"], out["states"]
-        ts = out["ts"]
-        # the ground truth of the row, as run_row made it
-        from vieo_slam_tpu_torch.sim import world as sim
-
-        if row == "stereo_loop":
-            Rwc, twc, _, _ = sim.circle_trajectory(
-                ts, radius=chip_smoke.LOOP_RADIUS,
-                omega=2 * np.pi / (chip_smoke.LOOP_FRAMES_PER_LAP * 0.1),
-                look_outward=True)
-        else:
-            Rwc, twc, _, _ = sim.circle_trajectory(ts, radius=1.0,
-                                             omega=chip_smoke.MONO_OMEGA,
-                                             look_outward=True)
-        Rcw, tcw = sim.trajectory_to_tcw(Rwc, twc)
+        n = 2 * LOOP_FRAMES_PER_LAP if row.endswith("_loop") else 60
+        run = Row(row, seed, n, dev, args.width, args.features, args.levels)
+        recovered_at = None
+        for i in range(n):
+            before = metrics.counters.get("reloc_success", 0)
+            run.step(i)
+            if recovered_at is None and \
+                    metrics.counters.get("reloc_success", 0) > before:
+                recovered_at = i
+        out = run.finish()
+        system, states, ts = run.system, run.states, run.sc.ts
+        Rcw, tcw, twc = run.Rcw, run.tcw, run.sc.twc
         t_kf, p_kf = kf_positions(system)
         whole = aligned_errors(t_kf, p_kf, ts, twc,
                                np.ones(len(t_kf), bool))
         print(f"{row} at {size}, seed {seed}: LOST {states.count('LOST')}, "
-              f"relocalizations "
-              f"{out['report']['counters'].get('reloc_success', 0)}, loops "
+              f"relocalizations {run.counter('reloc_success'):.0f}, loops "
               f"{system.loop_closer.n_loops_closed}, fused "
               f"{system.loop_closer.total_fuse_count}, "
               f"{len(t_kf)} keyframes; keyframe ATE without / with the "
-              f"final GBA {out['ate_no_gba']:.5f} / {out['ate_gba']:.5f} m",
+              f"final GBA {out['rmse_noFullBA']:.5f} / "
+              f"{out['rmse_fullBA']:.5f} m",
               flush=True)
         if row == "stereo_blackout":
-            b0, b1 = out["bo"]
+            b0, b1 = run.sc.bo
             pre = t_kf < ts[b0]
             post = t_kf > ts[b1]
             in_pre = aligned_errors(t_kf, p_kf, ts, twc, pre)
             own = aligned_errors(t_kf, p_kf, ts, twc, post)
-            i = out["recovered_at"]
+            i = recovered_at
             if i is not None:
                 # the true pose of the recovery frame in keyframe 0's frame
                 Rg = Rcw[i] @ Rcw[0].T
@@ -179,11 +180,11 @@ def main():
                 errs.append(f"{j} {traj[j][3][0]} {e[0]:.4f} {e[1]:.4f}")
             print("  per frame: index, state, camera error in keyframe 0's "
                   "frame (m, rad), as tracked: " + ", ".join(errs))
-            print(f"  recovered at frame {out['recovered_at']}; keyframe "
+            print(f"  recovered at frame {recovered_at}; keyframe "
                   f"ATE before the blackout {rms(in_pre[pre]):.5f} m; after "
                   f"the recovery, aligned alone {rms(own[post]):.5f} m, in "
                   f"the pre-blackout alignment {rms(in_pre[post]):.5f} m")
-        for k, c, a, b in out["closures"]:
+        for k, c, a, b in run.lc_events:
             print(f"  closure keyframe {k} to {c}: keyframe ATE "
                   f"{a:.5f} -> {b:.5f} m")
         print("  keyframe time, error in the whole-run alignment (m): "

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run one row of chip_smoke.run_row several times at one seed on one GPU,
+"""Run one row of the port's evaluate_ntimes.py several times at one seed
+on one GPU, at 752x480, 1200 features and 8 levels,
 first as the port runs by default and then under
 torch.use_deterministic_algorithms, and report whether repeated runs
 agree.
@@ -26,6 +27,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 import warnings
 from pathlib import Path
 
@@ -38,7 +40,34 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402
+from vieo_slam_tpu_torch.examples.evaluate_ntimes import (  # noqa: E402
+    LOOP_FRAMES_PER_LAP, Row)
+from vieo_slam_tpu_torch.io.evaluate import ate  # noqa: E402
+from vieo_slam_tpu_torch.utils.device import nvidia_smi  # noqa: E402
+
+
+def run(row: str, seed: int, dev) -> dict:
+    """One run of the row at full width: the system and its front end,
+    the states, the VI init frame, the keyframe ATE without the final
+    global BA, the ATE of the tracked frames and the seconds of the run."""
+    n = 2 * LOOP_FRAMES_PER_LAP if row.endswith("_loop") else 60
+    r = Row(row, seed, n, dev, 752, 1200, 8)
+    init_at, t0 = None, time.perf_counter()
+    for i in range(n):
+        r.step(i)
+        if init_at is None and getattr(r.front, "inited", False):
+            init_at = i
+    r.system.wait_idle()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    numbers = r.finish()
+    traj = r.system.tracker.trajectory
+    poses = np.asarray([-(R.T @ t) for _, R, t, _ in traj])
+    return dict(system=r.system, front=r.front, states=r.states,
+                init_at=init_at, run_s=run_s,
+                ate_no_gba=numbers["rmse_noFullBA"],
+                ate_track=ate(np.asarray([x[0] for x in traj]), poses,
+                              r.sc.ts, r.sc.twc)["rmse"])
 
 
 def digest(out) -> str:
@@ -64,7 +93,7 @@ def main():
     if not torch.cuda.is_available():
         print("vio_repeat: no CUDA device", file=sys.stderr)
         return 2
-    print(chip_smoke.nvidia_smi(), flush=True)
+    print(nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
     from vieo_slam_tpu_torch.ops import cuda_build
 
@@ -76,7 +105,7 @@ def main():
         for i in range(a.runs):
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                out = chip_smoke.run_row(torch, dev, a.row, a.seed)
+                out = run(a.row, a.seed, dev)
             vio = out["front"]
             r = dict(mode=mode, run=i, ate_kf=float(out["ate_no_gba"]),
                      ate_track=float(out["ate_track"]),

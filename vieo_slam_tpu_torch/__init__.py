@@ -18,3 +18,20 @@ import torch as _torch
 # matrix products or convolutions.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+# Lazy top-level API (importing the submodules eagerly would pull the
+# whole frontend and backend at `import vieo_slam_tpu_torch`).
+_API = {
+    "System": "system", "SystemConfig": "system", "SensorMode": "system",
+    "VioFrontend": "vio.frontend", "VioConfig": "vio.frontend",
+    "LoopCloser": "backend.loop_closing",
+    "LoopClosingConfig": "backend.loop_closing",
+}
+
+
+def __getattr__(name):
+    if name in _API:
+        import importlib
+        mod = importlib.import_module(f".{_API[name]}", __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

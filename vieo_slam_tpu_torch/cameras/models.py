@@ -249,7 +249,7 @@ def triangulate_dlt(rays: torch.Tensor, R_cw: torch.Tensor,
     tr = AtA[..., 0, 0] + AtA[..., 1, 1] + AtA[..., 2, 2]
     ridge = (100.0 * torch.finfo(A.dtype).eps) * (tr[..., None, None] + 1e-30)
     AtA = AtA + ridge * torch.eye(3, dtype=A.dtype, device=A.device)
-    return torch.linalg.solve(AtA, Atb[..., None])[..., 0]
+    return torch.linalg.solve_ex(AtA, Atb[..., None])[0][..., 0]
 
 
 def triangulation_checks(pw: torch.Tensor, cams_R_cw, cams_t_cw, rays):

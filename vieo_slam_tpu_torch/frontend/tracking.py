@@ -391,8 +391,13 @@ class Tracker:
         n_inl = int(res.n_inliers)
         if n_inl < self.cfg.min_inliers_ok:
             # Wide-radius retries: from the prediction, then from the last
-            # known-good pose.
-            for Rr, tr_ in [(R0, t0), (self.Rcw, self.tcw)]:
+            # known-good pose.  Without a velocity the two are the same
+            # pose, and the second call would repeat the first.
+            starts = [(R0, t0)]
+            if not (np.array_equal(R0, self.Rcw)
+                    and np.array_equal(t0, self.tcw)):
+                starts.append((self.Rcw, self.tcw))
+            for Rr, tr_ in starts:
                 res = self._run_kernel(frame, slab, Rr, tr_,
                                        self.cfg.lost_retry_radius)
                 n_inl = int(res.n_inliers)

@@ -3,9 +3,9 @@
 Port of vieo_slam_tpu/io/euroc.py (numpy, copied): timestamped stereo
 image paths, IMU samples and ground truth from the mav0/{cam0, cam1,
 imu0, state_groundtruth_estimate0} layout, and the IMU window between two
-frames.  Images are read by `load_image_gray`, a PNG decoder on numpy and
-zlib (no OpenCV) for the grayscale PNGs of these datasets: 8- and 16-bit
-gray, non-interlaced; 16-bit samples keep their high byte, as
+frames.  Images are read by `load_image_gray` through `io/png.read_png` (numpy
+and zlib, no OpenCV) for the grayscale PNGs of these datasets: 8- and
+16-bit gray, non-interlaced; 16-bit samples keep their high byte, as
 cv2.imread(IMREAD_GRAYSCALE) does.
 """
 
@@ -13,10 +13,10 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import struct
-import zlib
 
 import numpy as np
+
+from .png import read_png
 
 
 @dataclasses.dataclass
@@ -82,72 +82,15 @@ def load_euroc(root: str) -> EurocSequence:
     )
 
 
-_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-
-
-def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo PNG's per-row filters (None, Sub, Up, Average, Paeth)."""
-    rows = raw.reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) % 256
-        elif ftype == 2:
-            cur = (line + prev) % 256
-        elif ftype in (3, 4):
-            cur = np.zeros(stride, np.int32)
-            for x in range(0, stride, bpp):
-                a = cur[x - bpp:x] if x else np.zeros(bpp, np.int32)
-                b = prev[x:x + bpp]
-                if ftype == 3:
-                    pred = (a + b) // 2
-                else:
-                    c = prev[x - bpp:x] if x else np.zeros(bpp, np.int32)
-                    p = a + b - c
-                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-                    pred = np.where((pa <= pb) & (pa <= pc), a,
-                                    np.where(pb <= pc, b, c))
-                cur[x:x + bpp] = (line[x:x + bpp] + pred) % 256
-        else:
-            raise ValueError(f"PNG row filter {ftype} is not defined")
-        out[y] = cur
-        prev = cur
-    return out
-
-
 def load_image_gray(path: str) -> np.ndarray:
-    """One grayscale PNG as float32 [H, W] (decoded with numpy and zlib);
-    raises ValueError for any other PNG (color, palette, interlaced)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_MAGIC:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        chunk = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", chunk)
-        elif kind == b"IDAT":
-            idat.append(chunk)
-        elif kind == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if ctype != 0 or depth not in (8, 16) or interlace:
-        raise ValueError(f"{path}: PNG color type {ctype}, bit depth "
-                         f"{depth}, interlace {interlace} not supported")
-    bpp = depth // 8
-    pix = _unfilter(np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8),
-                    h, w * bpp, bpp)
-    if depth == 16:
-        pix = pix.reshape(h, w, 2)[..., 0]           # the high byte
+    """One grayscale PNG as float32 [H, W] (decoded by `io/png.read_png`
+    with numpy and zlib); raises ValueError for any other PNG (color,
+    palette, interlaced)."""
+    pix, _ = read_png(path)
+    if pix.ndim != 2:
+        raise ValueError(f"{path}: a color PNG, expected grayscale")
+    if pix.dtype == np.uint16:
+        pix = pix >> 8                                # the high byte
     return pix.astype(np.float32)
 
 

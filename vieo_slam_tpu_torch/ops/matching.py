@@ -45,6 +45,28 @@ def _mutual(col_best_row, best_idx, valid):
     return valid & (col_best_row[best_idx.clamp_min(0).long()] == rows)
 
 
+def mutual_filter(best_idx: torch.Tensor, na: int, nb: int,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Keep a->b matches that are the best for that b too (one-to-one);
+    ties to the lowest row, by a scatter-min of the row index (`na` for an
+    invalid row)."""
+    rows = torch.arange(na, dtype=torch.int32, device=best_idx.device)
+    col = best_idx.clamp(min=0).long()
+    owner = torch.full((nb,), na, dtype=torch.int32, device=best_idx.device)
+    owner.scatter_reduce_(0, col, torch.where(valid, rows, na), "amin")
+    return valid & (owner[col] == rows)
+
+
+def mutual_from_dist(dist: torch.Tensor, mask: torch.Tensor,
+                     best_idx: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Scatter-free one-to-one filter from the [Na, Nb] distance: keep
+    row a's match to column b only if a is also the argmin of column b
+    over the masked distance (ties to the lowest row)."""
+    d = torch.where(mask, dist, torch.full_like(dist, INF))
+    return _mutual(torch.argmin(d, dim=0), best_idx, valid)
+
+
 def _level_lookup(table: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
     """table[clip(level, 0, T-1)]."""
     return table[level.long().clamp(0, table.shape[0] - 1)]

@@ -155,31 +155,102 @@ def _stable_topk(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def select_keypoints(score: torch.Tensor, n_keep: int, cfg: OrbConfig):
-    """Deterministic spatially-distributed top-N: per-cell top-k, then a
-    global top-N by response.  Returns (uv [n, 2] int32 in-level coords,
-    score [n], valid [n])."""
+def _cell_table(score: torch.Tensor, c: int):
+    """The [G, c*c] candidate table of a score map cut into c x c cells
+    (zero-padded at the right and bottom), and (h, w, gx, G)."""
     h, w = score.shape
-    c = cfg.cell_size
     gy, gx = -(-h // c), -(-w // c)
     padded = torch.nn.functional.pad(score, (0, gx * c - w, 0, gy * c - h))
     cells = padded.reshape(gy, c, gx, c).permute(0, 2, 1, 3).reshape(
         gy * gx, c * c)
-    k = min(cfg.cell_topk, c * c)
+    return cells, (h, w, gx, gy * gx)
+
+
+def _picks(cell, in_cell, score, dims, cfg: OrbConfig):
+    """(uv [n, 2] int32, valid [n]) of picks given by their cell and
+    their index inside it."""
+    h, w, gx, n_cells = dims
+    c, b = cfg.cell_size, cfg.border
+    uv = torch.stack([(cell % gx) * c + in_cell % c,
+                      (cell // gx) * c + in_cell // c], dim=-1).int()
+    valid = ((score > 0) & (cell < n_cells)
+             & (uv[:, 0] >= b) & (uv[:, 0] < w - b)
+             & (uv[:, 1] >= b) & (uv[:, 1] < h - b))
+    return uv, valid
+
+
+def select_keypoints(score: torch.Tensor, n_keep: int, cfg: OrbConfig):
+    """Deterministic spatially-distributed top-N: per-cell top-k, then a
+    global top-N by response.  Returns (uv [n, 2] int32 in-level coords,
+    score [n], valid [n])."""
+    cells, dims = _cell_table(score, cfg.cell_size)
+    k = min(cfg.cell_topk, cells.shape[1])
     cell_scores, cell_idx = _stable_topk(cells, k)            # [G, k]
-    g = torch.arange(gy * gx, device=score.device)[:, None]
-    ys = (g // gx) * c + cell_idx // c
-    xs = (g % gx) * c + cell_idx % c
     flat_scores = cell_scores.reshape(-1)
     n_keep = min(n_keep, flat_scores.shape[0])
     top_scores, top_i = _stable_topk(flat_scores, n_keep)
-    uv = torch.stack([xs.reshape(-1)[top_i], ys.reshape(-1)[top_i]],
-                     dim=-1).int()
-    b = cfg.border
-    valid = ((top_scores > 0)
-             & (uv[:, 0] >= b) & (uv[:, 0] < w - b)
-             & (uv[:, 1] >= b) & (uv[:, 1] < h - b))
+    uv, valid = _picks(top_i // k, cell_idx.reshape(-1)[top_i], top_scores,
+                       dims, cfg)
     return uv, top_scores, valid
+
+
+def select_keypoints_batched(scores: list, n_keeps: list, cfg: OrbConfig):
+    """select_keypoints of several score maps with one per-cell sort and
+    one global sort: every map's cell table is zero-padded to the largest
+    cell count and stacked ([L, Gmax, c*c], then [L, Gmax*k]).  Pad rows
+    sit after every real cell, so the stable sort keeps the per-map
+    order; a pick past a map's real candidates is a pad row, zeroed as
+    the per-map path pads its shortfall.  Returns [(uv, score, valid),
+    ...], each equal to select_keypoints(scores[i], n_keeps[i]) in every
+    bit (up to the shortfall padding that `_pad_selection` adds to both).
+
+    The JAX package's variant also zeroes the uv of picks that fail the
+    border test; select_keypoints keeps them, and so does this one."""
+    c = cfg.cell_size
+    tables = [_cell_table(s, c) for s in scores]
+    k = min(cfg.cell_topk, c * c)
+    g_max = max(dims[3] for _, dims in tables)
+    stacked = torch.stack([torch.nn.functional.pad(
+        cells, (0, 0, 0, g_max - cells.shape[0])) for cells, _ in tables])
+    cell_scores, cell_idx = _stable_topk(stacked, k)         # [L, Gmax, k]
+    n_max = min(max(n_keeps), g_max * k)
+    top_scores, top_i = _stable_topk(cell_scores.reshape(len(scores), -1),
+                                     n_max)                  # [L, n_max]
+    in_cell = torch.gather(cell_idx.reshape(len(scores), -1), 1, top_i)
+    out = []
+    for lv, (_, dims) in enumerate(tables):
+        n_l = min(n_keeps[lv], g_max * k)
+        s, cell = top_scores[lv, :n_l], top_i[lv, :n_l] // k
+        uv, valid = _picks(cell, in_cell[lv, :n_l], s, dims, cfg)
+        uv = torch.where((cell < dims[3])[:, None], uv, 0)
+        out.append((uv, s, valid))
+    return out
+
+
+def select_keypoints_concat(scores: list, n_keeps: list, cfg: OrbConfig):
+    """select_keypoints of several score maps with ONE per-cell sort over
+    the concatenated real cells of all maps ([G_tot, c*c], no padding),
+    then each map's global top-N on its slice.  Returns [(uv, score,
+    valid), ...], each equal to select_keypoints(scores[i], n_keeps[i])
+    in every bit (the JAX package's variant also zeroes the uv of picks
+    that fail the border test; this one keeps them, as select_keypoints
+    does)."""
+    c = cfg.cell_size
+    tables = [_cell_table(s, c) for s in scores]
+    k = min(cfg.cell_topk, c * c)
+    cell_scores, cell_idx = _stable_topk(
+        torch.cat([cells for cells, _ in tables]), k)        # ONE sort
+    out, o = [], 0
+    for lv, (_, dims) in enumerate(tables):
+        n_cells = dims[3]
+        s_flat = cell_scores[o:o + n_cells].reshape(-1)
+        i_flat = cell_idx[o:o + n_cells].reshape(-1)
+        top_scores, top_i = _stable_topk(s_flat,
+                                         min(n_keeps[lv], n_cells * k))
+        uv, valid = _picks(top_i // k, i_flat[top_i], top_scores, dims, cfg)
+        out.append((uv, top_scores, valid))
+        o += n_cells
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -274,13 +345,14 @@ def brief_descriptors(img_blur: torch.Tensor, centers: torch.Tensor,
                               angles)
 
 
-def _env_mode(name: str) -> str:
-    """Validated auto/on/off environment switch (a typo must fail loudly
-    instead of silently picking a path)."""
+def _env_mode(name: str, extra: tuple = ()) -> str:
+    """Validated auto/on/off environment switch, plus the modes `extra`
+    (a typo must fail loudly instead of silently picking a path)."""
     v = os.environ.get(name, "auto").strip().lower()
-    if v not in ("auto", "on", "off"):
-        raise ValueError(f"{name}={os.environ.get(name)!r}: expected "
-                         "auto|on|off")
+    if v not in ("auto", "on", "off") + extra:
+        raise ValueError(
+            f"{name}={os.environ.get(name)!r}: expected "
+            f"auto|on|off{''.join('|' + e for e in extra)}")
     return v
 
 
@@ -291,6 +363,12 @@ def _env_mode(name: str) -> str:
 # "off" keep the B2 gather plus the PyTorch tail, the JAX default.
 FUSED_TAIL_MODE = _env_mode("ORB_FUSED_TAIL")
 TAIL_KERNEL_MODE = _env_mode("ORB_TAIL_KERNEL")
+# Cross-level selection, named as in the JAX package: "on" takes
+# select_keypoints_batched, "concat" select_keypoints_concat, over all
+# (level, image) entries of extract_orb_batch at once; "auto" and "off"
+# select per entry, the default (as in JAX, where both variants measured
+# slower on its accelerator).  All three give the same features.
+BATCHED_SELECT_MODE = _env_mode("ORB_BATCHED_SELECT", ("concat",))
 
 
 def _use_fused_tail() -> bool:
@@ -360,9 +438,20 @@ def _tails(level_imgs: list, level_uvs: list, per_image: list):
 # ---------------------------------------------------------------------------
 
 
-def _select_level(score: torch.Tensor, n_l: int, cfg: OrbConfig):
-    """select_keypoints on one level's blended score, padded to n_l rows."""
-    uv, s, valid = select_keypoints(score, n_l, cfg)
+def _select(scores: list, n_keeps: list, cfg: OrbConfig) -> list:
+    """(uv, score, valid) of each blended score map through the
+    configured selection, each padded to its n_keep rows."""
+    if BATCHED_SELECT_MODE == "on":
+        sels = select_keypoints_batched(scores, n_keeps, cfg)
+    elif BATCHED_SELECT_MODE == "concat":
+        sels = select_keypoints_concat(scores, n_keeps, cfg)
+    else:
+        sels = [select_keypoints(s, n, cfg) for s, n in zip(scores, n_keeps)]
+    return [_pad_selection(*sel, n) for sel, n in zip(sels, n_keeps)]
+
+
+def _pad_selection(uv, s, valid, n_l: int):
+    """A selection padded to n_l rows (tiny levels)."""
     if uv.shape[0] < n_l:  # tiny levels: pad capacity
         padn = n_l - uv.shape[0]
         uv = torch.nn.functional.pad(uv, (0, 0, 0, padn))
@@ -411,8 +500,7 @@ def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
     # iniThFAST winners boosted above every minThFAST score.
     scores = fast_nms_blend_multi(level_imgs, cfg.fast_threshold,
                                   cfg.fast_min_threshold)
-    sels = [_select_level(score, int(per_level[lv]), cfg)
-            for lv, score in zip(levels * B, scores)]
+    sels = _select(scores, [int(per_level[lv]) for lv in levels * B], cfg)
     tails = _tails(level_imgs, [uv for uv, _, _ in sels], [L] * B)
     per_image = [_assemble(levels, sels[b * L:(b + 1) * L],
                            tails[b * L:(b + 1) * L], cfg, dev)

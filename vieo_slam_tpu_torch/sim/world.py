@@ -187,17 +187,20 @@ class SyntheticWorld:
             r_out = rng if rng is not None else np.random
             outlier = r_out.rand(len(self.pw)) < depth_outlier_frac
             out_scale = 1.0 + (r_out.rand(len(self.pw)) - 0.3)
-        for li in np.nonzero(vis)[0][order]:
-            u, v = uv[li]
-            iu, iv = int(np.floor(u)), int(np.floor(v))
-            fu, fv = u - iu, v - iv
-            pp = np.pad(patches[li], 1, mode="edge")
-            p00 = pp[0:P, 0:P]
-            p01 = pp[0:P, 1:P + 1]
-            p10 = pp[1:P + 1, 0:P]
-            p11 = pp[1:P + 1, 1:P + 1]
-            sh = ((1 - fv) * (1 - fu) * p11 + (1 - fv) * fu * p10
-                  + fv * (1 - fu) * p01 + fv * fu * p00)
+        ids = np.nonzero(vis)[0][order]
+        # The bilinear sub-pixel shifts of all stamps at once (the same f32
+        # operations, in the same order, as one stamp at a time), then the
+        # stamps far to near.
+        u, v = uv[ids, 0], uv[ids, 1]
+        fl_u, fl_v = np.floor(u), np.floor(v)
+        fu, fv = (u - fl_u)[:, None, None], (v - fl_v)[:, None, None]
+        pp = np.pad(patches[ids], ((0, 0), (1, 1), (1, 1)), mode="edge")
+        shifted = ((1 - fv) * (1 - fu) * pp[:, 1:P + 1, 1:P + 1]
+                   + (1 - fv) * fu * pp[:, 1:P + 1, 0:P]
+                   + fv * (1 - fu) * pp[:, 0:P, 1:P + 1]
+                   + fv * fu * pp[:, 0:P, 0:P])
+        for li, iu, iv, sh in zip(ids, fl_u.astype(int), fl_v.astype(int),
+                                  shifted):
             img[iv - h + 1: iv + P - h + 1, iu - h + 1: iu + P - h + 1] = sh
             if depth_map is not None:
                 z = pc[li, 2]

@@ -73,7 +73,8 @@ def lm_solve_parallel(system_fn: Callable, cost_fn: Callable,
         H, b, _ = system_fn(x)
         lams = lam * spread                                   # [K]
         A = H[None] + lams[:, None, None] * eye
-        dxs = torch.linalg.solve(A, b.expand(n_lambda, -1)[..., None])[..., 0]
+        dxs = torch.linalg.solve_ex(
+            A, b.expand(n_lambda, -1)[..., None])[0][..., 0]
         cands = [retract_fn(x, dxs[k]) for k in range(n_lambda)]
         costs = torch.stack([cost_fn(c) for c in cands]).to(dt)
         best = torch.argmin(costs)

@@ -185,7 +185,10 @@ def _solve_camera_system(Hpp, S, rhs, free, lam):
     S_full = S_full.reshape(K * 6, K * 6)
     fm = free.repeat_interleave(6).to(S_full.dtype)
     S_masked = S_full * fm[:, None] * fm[None, :] + torch.diag(1.0 - fm)
-    dx = torch.linalg.solve(S_masked, rhs.reshape(-1) * fm).reshape(K, 6)
+    # solve_ex, as XLA's solve: a singular system gives a non-finite step,
+    # which LM rejects, where torch.linalg.solve would raise.
+    dx = torch.linalg.solve_ex(S_masked, rhs.reshape(-1) * fm)[0].reshape(
+        K, 6)
     return torch.where(free[:, None], dx, torch.zeros_like(dx))
 
 

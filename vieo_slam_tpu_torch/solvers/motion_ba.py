@@ -131,7 +131,7 @@ def pose_optimization(Rcw0: torch.Tensor, tcw0: torch.Tensor, obs: PoseObs,
             for _ in range(iters_per_round):
                 Hs, b, _ = system_fn(pose)
                 A = Hs + 1e-4 * torch.diagonal(Hs).max() * eye6
-                pose = _retract(pose, torch.linalg.solve(A, b))
+                pose = _retract(pose, torch.linalg.solve_ex(A, b)[0])
             H, _, _ = system_fn(pose)
         elif mode == "plm":
             pose, _, H = lm_solve_parallel(system_fn, cost_fn, _retract, pose,

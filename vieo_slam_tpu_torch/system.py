@@ -326,9 +326,10 @@ class System:
         with metrics.timer("final_gba"):
             self.mapper.run_global_ba(stage_iters=(10, 15))
 
-    def shutdown(self):
+    def shutdown(self, print_report: bool = False):
         """Drain and join the worker, then wait for the device work
-        enqueued so far."""
+        enqueued so far; optionally print the per-stage timing report
+        (the stereo_euroc.cc exit report)."""
         self.wait_idle()
         if self._worker is not None:
             self._kf_queue.put(None)
@@ -337,6 +338,8 @@ class System:
             self._kf_queue = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if print_report:
+            print(metrics.format_report())
 
     def metrics_report(self) -> dict:
         """Per-stage timing stats + event counters."""

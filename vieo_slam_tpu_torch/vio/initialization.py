@@ -46,7 +46,7 @@ def solve_gyro_bias(R_wb: torch.Tensor, pre: ImuPreint, *, iters: int = 4):
     for _ in range(iters):
         r = residual(bg)
         J = jacfwd(residual)(bg)
-        bg = bg - torch.linalg.solve(J.T @ J + 1e-9 * eye, J.T @ r)
+        bg = bg - torch.linalg.solve_ex(J.T @ J + 1e-9 * eye, J.T @ r)[0]
     return bg
 
 
