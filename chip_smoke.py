@@ -39,8 +39,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      landmarks, circle at 0.35 rad/s, 60 frames, photometric noise and
      brightness drift), tail kernel on.  Counters zeroed before and read
      after (B5 and B1 once per frame, B2 never; B3, B4 at all); the two-view
-     initialization must succeed, no later frame be LOST and the
-     scale-aligned ATE RMSE stay under 0.02 m.
+     initialization must come at the JAX package's frame for this
+     sequence (JAX_MONO_KNOWN).  The reference initializes there on a weak
+     pair and loses the track at frame 40, and so does the port, so the
+     bars hold the port to the reference with scripts/vio_rows.py's
+     tolerance of a row (MONO_KNOWN_TOL, 30 %): no frame after the init is
+     LOST before frame 28 (40 less 30 %; a run that stays OK longer
+     passes), and the scale-aligned ATE RMSE of the OK frames lies within
+     30 % of the reference's 0.22862 m.  The bars of a tracked mono
+     sequence (no LOST frame, ATE under 0.02 m) are phase 23's, on the
+     mono_loop row.
   8. profile: the last 6 frames of a 14-frame full-width stereo run under
      torch.profiler -- device busy share, device ops and host waits per
      frame, the device time of each stage and the top device entries.
@@ -179,6 +187,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      off, on and concat: equal in every field; the median ms of each.
      (d) mutual_filter on the card equal to the CPU.  (e) entry(): the
      frontend step's outputs finite, B1 and B2 once, B3 and B4 launched.
+ 23. the RANSAC draws (`draw_parity_phase`).  (a) utils/prng's
+     categorical, the JAX package's draw, on the card against the same
+     call on the CPU at the solvers' full-width shapes (two-view init
+     (256, 8, 1000), 3D-3D PnP (1024, 3, 512), DLT PnP (2048, 6, 512),
+     Sim3 (128, 3, 512), an all-invalid mask): equal in every index.  (b)
+     The first 60 frames of the mono_loop row at its own size (640x480,
+     1000 features, 4 levels), noise seed 11, on the card.  Bars: the
+     first OK frame is the JAX package's (JAX_MONO_LOOP_INIT_FRAME), no
+     frame is LOST and the scale-aligned keyframe ATE RMSE stays under
+     0.02 m.  Prints its seconds.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -226,6 +244,23 @@ LOOP_SEED = PLACE_SEEDS[0]
 # Phase 15's final-acceptance span of the VI init (the rows' 15 s needs
 # more frames than the 60 of stereo_vio): past it the PRV window BA runs.
 VIO_ASYNC_FINAL_SPAN = 4.0
+# Phase 7's sequence through the JAX package with its own draws: the
+# two-view init comes on frame 3 (64 good points of 263 matches), the track
+# is LOST from frame 40 on, and the OK frames' scale-aligned ATE RMSE is
+# 0.22862 m (`python3 scripts/row_parity.py --row smoke_mono --seed 0
+# --device cpu`, x64 off; the port on the CPU gives the same states).
+JAX_MONO_KNOWN = (3, 40, 0.22862)
+# Phase 7's tolerance against JAX_MONO_KNOWN, scripts/vio_rows.py's for a
+# row's ATE and LOST count.
+MONO_KNOWN_TOL = 0.3
+# Phase 23: the JAX package's mono_loop row at noise seed 11 is OK from
+# frame 1 (its two-view init on frames 0 and 1) and not LOST in its first
+# 60 frames, keyframe ATE RMSE 0.0036117 m (`python3 scripts/row_parity.py
+# --row mono_loop --seed 11 --frames 60 --sides jax`, on the CPU with x64
+# off).
+MONO_LOOP_SEED = 11
+MONO_LOOP_FRAMES = 60
+JAX_MONO_LOOP_INIT_FRAME = 1
 
 
 _T0 = time.perf_counter()
@@ -2046,6 +2081,68 @@ def supporting_code_phase(torch, dev, launches_place):
     log(f"[22 supporting code] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the RANSAC draws
+# ---------------------------------------------------------------------------
+
+
+def draw_parity_phase(torch, dev):
+    """Phase 23: the JAX package's draw (utils/prng) on the card against
+    the CPU at the solvers' shapes, then the start of the mono_loop row at
+    seed 11, which must initialize at the JAX package's frame."""
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
+    from vieo_slam_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(23)
+    cases = [("two-view init", (256, 8), rng.rand(1000) < 0.4),
+             ("3D-3D PnP", (1024, 3), rng.rand(512) < 0.7),
+             ("DLT PnP", (2048, 6), rng.rand(512) < 0.7),
+             ("Sim3", (128, 3), np.arange(512) < 300),
+             ("DLT PnP, no valid row", (2048, 6), np.zeros(512, bool))]
+    for n, (name, shape, valid) in enumerate(cases):
+        key = prng.prng_key(rng.randint(0, 2 ** 31))
+        v = torch.from_numpy(valid)
+        want = prng.categorical_valid(key, v, shape)
+        t0 = time.perf_counter()
+        got = prng.categorical_valid(key, v.to(dev), shape)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        same = torch.equal(got.cpu(), want)
+        extra = ""
+        if n == 0:
+            logits = torch.where(v, 0.0, prng.INVALID_LOGIT)
+            full = prng.categorical(key, logits.to(dev), shape)
+            same &= torch.equal(full.cpu(), want)
+            extra = ", the full draw over the logits too"
+        log(f"[23a draws] {name} {(*shape, valid.size)}, {int(valid.sum())} "
+            f"valid rows: the card equal to the CPU in every index{extra}: "
+            f"{same} ({ms:.2f} ms on the card, first call included)")
+        if not same:
+            fail(f"the {name} draw on the card differs from the CPU")
+
+    t0 = time.perf_counter()
+    row = ev.Row("mono_loop", MONO_LOOP_SEED, 2 * ev.LOOP_FRAMES_PER_LAP,
+                 dev)
+    for i in range(MONO_LOOP_FRAMES):
+        row.step(i)
+    states = row.states
+    first = states.index("OK") if "OK" in states else None
+    lost = [i for i, x in enumerate(states) if x == "LOST"]
+    row.system.wait_idle()
+    kf_ate = row.kf_ate()["rmse"]
+    log(f"[23b mono_loop] seed {MONO_LOOP_SEED}, the first "
+        f"{MONO_LOOP_FRAMES} frames at 640x480, 1000 features, 4 levels: "
+        f"first OK frame {first} (the JAX package's "
+        f"{JAX_MONO_LOOP_INIT_FRAME}), LOST frames {lost}, "
+        f"{row.system.map.n_keyframes()} keyframes, keyframe ATE RMSE "
+        f"{kf_ate:.5f} m ({time.perf_counter() - t0:.1f} s)")
+    row.system.shutdown()
+    if first != JAX_MONO_LOOP_INIT_FRAME or lost or not kf_ate < 0.02:
+        fail("mono_loop does not start as the JAX package's row does")
+    log(f"[23 draws] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -2199,15 +2296,30 @@ def main():
     names = [s.name for s in states]
     first = names.index("OK") if "OK" in names else -1
     lost = sum(s != "OK" for s in names[first:]) if first >= 0 else n_mono
+    lost_from = next((i for i in range(max(first, 0), n_mono)
+                      if names[i] != "OK"), None)
     log(f"[7 mono known] {n_mono} frames 640x480, 1000 features, 4 levels, "
         f"tail kernel on: initialized at frame {first}, {lost} frames not OK "
-        f"after it, scale-aligned ATE RMSE {res['rmse']:.5f} m over "
-        f"{res['n']} frames (scale {res['scale']:.4f}), "
-        f"{system.map.n_keyframes()} keyframes, "
+        f"after it (from frame {lost_from}), scale-aligned ATE RMSE "
+        f"{res['rmse']:.5f} m over {res['n']} frames (scale "
+        f"{res['scale']:.4f}), {system.map.n_keyframes()} keyframes, "
         f"{system.map.n_landmarks()} landmarks; launches {launches_mono} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    if first < 0 or lost or not res["rmse"] < 0.02:
-        fail("mono known configuration misses its bars")
+        f"({time.perf_counter() - t0:.1f} s); the JAX package on this "
+        f"sequence: initialized at frame {JAX_MONO_KNOWN[0]}, LOST from "
+        f"frame {JAX_MONO_KNOWN[1]}, ATE RMSE {JAX_MONO_KNOWN[2]} m")
+    if first != JAX_MONO_KNOWN[0]:
+        fail("mono known configuration does not initialize at the JAX "
+             "package's frame")
+    if lost_from is not None and \
+            lost_from < (1 - MONO_KNOWN_TOL) * JAX_MONO_KNOWN[1]:
+        fail(f"mono known configuration loses the track at frame "
+             f"{lost_from}, before the JAX package's {JAX_MONO_KNOWN[1]} "
+             f"less {MONO_KNOWN_TOL:.0%}")
+    if not abs(res["rmse"] - JAX_MONO_KNOWN[2]) \
+            <= MONO_KNOWN_TOL * JAX_MONO_KNOWN[2]:
+        fail(f"mono known configuration's ATE {res['rmse']:.5f} m is not "
+             f"within {MONO_KNOWN_TOL:.0%} of the JAX package's "
+             f"{JAX_MONO_KNOWN[2]} m")
     check_counts("mono known", launches_mono,
                  {"fast_nms_blend": n_mono, "gather_patches": 0,
                   "tail_fused": n_mono},
@@ -2499,6 +2611,9 @@ def main():
     # 22. supporting code: run_euroc from a EuRoC folder, the stereo_lem
     # row with the viewer, the selection paths, mutual_filter, entry()
     supporting_code_phase(torch, dev, launches_place)
+    # 23. the RANSAC draws on the card against the CPU; the start of the
+    # mono_loop row
+    draw_parity_phase(torch, dev)
 
     meta = {
         "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99",
@@ -2539,7 +2654,7 @@ def main():
                                  "survivors", "corners") if x in r},
             "rig": {case: r for case, r in rig_kernels.items()
                     if case.split()[0] == meta[k][2]}})
-    log(f"[done] phases 1-22 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-23 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ by tracking state.
 Runs the row at its own size (640x480, its features and levels) frame by
 frame through evaluate_ntimes.Row, each frame (render, build, track)
 between device syncs, and prints: the card's name and power limit, the
-state of every frame as one string (. OK, L LOST, o ODOMOK, n not
-initialized), the count and median ms of the frames in each state, the
-stage report (utils/metrics.format_report), the row's numbers, and
+seconds of the frames and the state of every frame as one string (. OK,
+L LOST, o ODOMOK, n not initialized), the count and median ms of the
+frames in each state, the stage report (utils/metrics.format_report),
+the row's numbers, and
 torch.profiler's top host and device entries over three frames from the
 twentieth LOST frame on (when the row has one).
 """
@@ -68,8 +69,8 @@ def main():
             prof.__exit__(None, None, None)
             window = states[first:i + 1]
     numbers = row.finish()
-    print(f"{args.row} seed {args.seed}, {n} frames: "
-          + "".join(LETTER[s] for s in states))
+    print(f"{args.row} seed {args.seed}, {n} frames in "
+          f"{sum(times):.1f} s: " + "".join(LETTER[s] for s in states))
     st, ts = np.asarray(states), 1e3 * np.asarray(times)
     for s in LETTER:
         if (st == s).any():

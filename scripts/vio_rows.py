@@ -3,7 +3,7 @@
 rows on one GPU and hold their means against the JAX package's
 ACCURACY_r05.json.
 
-    python3 scripts/vio_rows.py [--width 640 --features 600 --levels 4]
+    python3 scripts/vio_rows.py [--width 640 --features N --levels 4]
         [--rows stereo_async,stereo_vio,vio_blackout,vio_loop]
         [--seeds 11,18,25] [--out FILE]
 
@@ -14,18 +14,19 @@ The rows are the port's evaluate_ntimes.py, run through its run_once
 (phases 11-20 of chip_smoke.py run them at 752x480, 1200 features, 8
 levels); the defaults are the JAX package's own row configuration and
 seeds (seed0 11 + 7 i), 360 frames for a loop or figure-eight row and 60
-otherwise.  Each row reports what evaluate_ntimes.py does:
-the keyframe ATE without and with the final global BA, the LOST, ODOMOK
-and relocalization counts and the keyframe ATE after the recovery
-(blackout, map reuse), the loops closed, the fused points and the keyframe
-ATE before and after the first closure (loop), the LOST and
-relocalization counts (figure-eight), and each partner view's
-triangulations a frame and mean squared two-view error (multi-camera),
-beside the seconds of the run.  A
-mean agrees with the reference when its ATEs are within 30 % or 1 mm of it
-(whichever is larger), its LOST frames within 30 % or one, its
-triangulation counts within 30 % and its other counts within one.  Prints the card's name and power limit first; with
---out, writes every run's numbers there as JSON.
+otherwise, and each row's own feature count (1000 for mono and mono_loop,
+600 otherwise) unless --features sets one for all.  Each row reports
+what evaluate_ntimes.py does: the keyframe ATE without and with the
+final global BA, the LOST, ODOMOK and relocalization counts and the
+keyframe ATE after the recovery (blackout, map reuse), the loops closed,
+the fused points and the keyframe ATE before and after the first closure
+(loop), the LOST and relocalization counts (figure-eight), and each
+partner view's triangulations a frame and mean squared two-view error
+(multi-camera), beside the seconds of the run.  A mean agrees with the
+reference when its ATEs are within 30 % or 1 mm of it (whichever is
+larger), its LOST frames within 30 % or one, its triangulation counts
+within 30 % and its other counts within one.  Prints the card's name and
+power limit first; with --out, writes every run's numbers there as JSON.
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ def verdict(mean: dict, ref: dict) -> list:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=640)
-    ap.add_argument("--features", type=int, default=600)
+    ap.add_argument("--features", type=int, default=None,
+                    help="features for every row (default: each row's own)")
     ap.add_argument("--levels", type=int, default=4)
     ap.add_argument("--rows",
                     default="stereo_async,stereo_vio,vio_blackout,vio_loop")
@@ -91,7 +93,8 @@ def main():
     smi = nvidia_smi()
     print(smi, flush=True)
     ref = json.loads((ROOT / "ACCURACY_r05.json").read_text())["scenarios"]
-    size = f"{args.width}x480, {args.features} features, {args.levels} levels"
+    features = "the row's own" if args.features is None else args.features
+    size = f"{args.width}x480, {features} features, {args.levels} levels"
     report = {"card": smi, "size": size, "runs": {}, "means": {}}
     all_ok = True
     for row in args.rows.split(","):

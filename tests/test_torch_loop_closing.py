@@ -94,7 +94,7 @@ def closed():
             orig(lc, k_, c_, S_ck)
         lc._correct_loop = hook
 
-    def jax_draws(src, dst, valid, generator, **kw):
+    def jax_draws(src, dst, valid, key, **kw):
         logits = jnp.where(jnp.asarray(valid.numpy()), 0.0, -1e9)
         idx = jax.random.categorical(jax.random.PRNGKey(k), logits,
                                      shape=(128, 3))

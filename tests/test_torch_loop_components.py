@@ -8,8 +8,9 @@ same numpy), the descent's word ids exact and BoW vectors 1e-6; database
 scores 1e-6 (the L1 sums reduce in another order) and the candidates
 exact; solvers 1e-4 on poses, scales and landmarks, with identical inlier
 sets.  The RANSAC cores are handed the indices the JAX package draws
-(`jax.random.categorical` cannot be reproduced by a torch.Generator); the
-draws themselves are checked for their distribution.
+(under the suite's x64 its Sim3 draw takes f64 logits); the port's own
+draw, keyed (`utils.prng`, held against `jax.random` in
+test_torch_prng.py), is checked here for its distribution.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from vieo_slam_tpu_torch.math import lie as tlie
 from vieo_slam_tpu_torch.solvers import pnp_solver as tpnp
 from vieo_slam_tpu_torch.solvers import pose_graph as tpg
 from vieo_slam_tpu_torch.solvers import sim3_solver as tsim3
+from vieo_slam_tpu_torch.utils import prng
 
 # One intra-op thread: the suite runs several worker processes at once and
 # the tensors here are small, so more threads only contend for the cores.
@@ -222,16 +224,14 @@ def test_sim3_ransac_from_jax_draws(with_scale):
 def test_draws_are_uniform_over_valid_rows_with_replacement():
     valid = np.zeros(40, bool)
     valid[[1, 5, 6, 30]] = True
-    g = torch.Generator().manual_seed(3)
-    idx = tpnp.draw_indices(T(valid), 2000, 3, g).numpy()
+    idx = tpnp.draw_indices(T(valid), 2000, 3, prng.prng_key(3)).numpy()
     assert set(np.unique(idx)) == {1, 5, 6, 30}
     counts = np.bincount(idx.ravel(), minlength=40)[[1, 5, 6, 30]]
     assert counts.min() > 1300 and counts.max() < 1700
     # with replacement: repeated rows inside one sample occur
     assert (idx[:, 0] == idx[:, 1]).any()
-    # the generator alone decides the draw
-    again = tpnp.draw_indices(T(valid), 2000, 3,
-                              torch.Generator().manual_seed(3)).numpy()
+    # the key alone decides the draw
+    again = tpnp.draw_indices(T(valid), 2000, 3, prng.prng_key(3)).numpy()
     np.testing.assert_array_equal(again, idx)
 
 

@@ -48,6 +48,7 @@ from vieo_slam_tpu_torch.solvers import initializer as tinit
 from vieo_slam_tpu_torch.solvers import local_ba as tlba
 from vieo_slam_tpu_torch.solvers import motion_ba as tmba
 from vieo_slam_tpu_torch.system import SensorMode, System
+from vieo_slam_tpu_torch.utils import prng
 
 from test_torch_solvers import CAM_ARGS, ba_problem, pose_problem
 from test_torch_system import rot_angle
@@ -156,18 +157,19 @@ def test_monocular_init_matches_jax(name):
 
 
 def test_monocular_init_draws_from_generator():
-    """The generator decides the samples: same seed, same result; only
-    valid matches are drawn."""
+    """The key decides the samples (the JAX package's threefry stream,
+    `utils.prng`): same key, same result; only valid matches are
+    drawn."""
     uv1, uv2, *_ = two_view_case("general")
     valid = np.ones(300, bool)
     valid[::3] = False
     cam = tcm.make_pinhole(400.0, 400.0, 320.0, 240.0, 640, 480)
-    idx = tinit.draw_hypotheses(T(valid), torch.Generator().manual_seed(5))
+    idx = tinit.draw_hypotheses(T(valid), prng.prng_key(5))
     assert idx.shape == (256, 8) and valid[idx.numpy()].all()
     a = tinit.monocular_init(T(uv1), T(uv2), T(valid), cam,
-                             torch.Generator().manual_seed(5))
+                             prng.prng_key(5))
     b = tinit.monocular_init(T(uv1), T(uv2), T(valid), cam,
-                             torch.Generator().manual_seed(5))
+                             prng.prng_key(5))
     assert bool(a.ok) and torch.equal(a.R21, b.R21) \
         and torch.equal(a.good, b.good)
     assert not a.good.numpy()[::3].any()

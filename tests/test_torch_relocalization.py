@@ -5,12 +5,13 @@ convert.frame_from_jax), then the camera is kidnapped back to an early
 view.
 
 Both must go LOST on the same frame and relocalize on the same frame; the
-recovered poses agree within 1e-3 m and 1e-3 rad (the RANSAC draws
-differ -- a torch.Generator cannot reproduce jax.random -- but the pose is
-decided by the pose optimization on the harvested matches), and the
-tracker's `just_relocalized` is set.  The frames tracked after the
-recovery (the first of them without a motion model, as in the JAX
-package) agree to the same tolerance.
+recovered poses agree within 1e-3 m and 1e-3 rad, and the tracker's
+`just_relocalized` is set.  Each candidate's PnP RANSAC draws the JAX
+package's hypotheses (the key of the frame's timestamp, `utils.prng`), so
+the two packages make the same RANSAC calls with identical inlier sets and
+counts, their poses within 1e-4.  The frames tracked after the recovery
+(the first of them without a motion model, as in the JAX package) agree to
+the same tolerance as the recovered pose.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from vieo_slam_tpu.backend.loop_closing import (
     LoopClosingConfig as JLoopClosingConfig,
 )
 from vieo_slam_tpu.cameras import models as jcm
+from vieo_slam_tpu.frontend import relocalization as jreloc
 from vieo_slam_tpu.frontend.frame import make_frame_from_features
 from vieo_slam_tpu.frontend.tracking import TrackerConfig as JTrackerConfig
 from vieo_slam_tpu.sim import world as jworld
@@ -31,6 +33,7 @@ from vieo_slam_tpu.utils.metrics import metrics as jmetrics
 from vieo_slam_tpu_torch import convert
 from vieo_slam_tpu_torch.backend.loop_closing import LoopCloser
 from vieo_slam_tpu_torch.cameras import models as tcm
+from vieo_slam_tpu_torch.frontend import relocalization as treloc
 from vieo_slam_tpu_torch.frontend.relocalization import try_relocalize
 from vieo_slam_tpu_torch.frontend.tracking import TrackerConfig
 from vieo_slam_tpu_torch.system import System, SystemConfig
@@ -50,6 +53,16 @@ SLAB = 1536           # the tracker's local landmark slab (both systems)
 def rot_angle(Ra, Rb):
     c = (np.trace(Ra @ Rb.T) - 1.0) / 2.0
     return float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def recording(calls, name, fn):
+    """fn, with each call's (solver, inliers, count, ok, R, t) kept."""
+    def spy(*args, **kw):
+        res = fn(*args, **kw)
+        calls.append((name, np.asarray(res.inliers), int(res.n_inliers),
+                      bool(res.ok), np.asarray(res.Rcw), np.asarray(res.tcw)))
+        return res
+    return spy
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +85,12 @@ def kidnap_runs():
     metrics.reset()
     views = list(range(N_TRACK)) + list(KIDNAP)
     rows = []
+    calls = {"jax": [], "port": []}
+    mp = pytest.MonkeyPatch()
+    for side, mod in (("jax", jreloc), ("port", treloc)):
+        for name in ("pnp_ransac", "pnp_ransac_3d3d"):
+            mp.setattr(mod, name, recording(calls[side], name,
+                                            getattr(mod, name)))
     for n, i in enumerate(views):
         obs = world.observe(Rcw[i], tcw[i], jcam, bf=BF, n_kp=500,
                             pixel_noise=0.25, bit_flips=4, clutter=40,
@@ -84,11 +103,12 @@ def kidnap_runs():
                      js.tracker.Rcw.copy(), js.tracker.tcw.copy(),
                      ps.tracker.Rcw.copy(), ps.tracker.tcw.copy(),
                      ps.tracker.just_relocalized, tf))
-    return js, ps, rows, (Rcw, tcw)
+    mp.undo()
+    return js, ps, rows, (Rcw, tcw), calls
 
 
 def test_same_states_and_recovery_frame(kidnap_runs):
-    js, ps, rows, _ = kidnap_runs
+    js, ps, rows, _, _ = kidnap_runs
     states = [(r[1].name, r[2].name) for r in rows]
     for i, (sj, st) in enumerate(states):
         assert sj == st, (i, states)
@@ -106,7 +126,7 @@ def test_same_states_and_recovery_frame(kidnap_runs):
 
 
 def test_recovered_pose(kidnap_runs):
-    js, ps, rows, (Rcw, tcw) = kidnap_runs
+    js, ps, rows, (Rcw, tcw), _ = kidnap_runs
     recovered = [r for r in rows[N_TRACK:] if r[2].name == "OK"]
     assert recovered
     i, _, _, Rj, tj, Rp, tp, flag, _ = recovered[0]
@@ -120,9 +140,23 @@ def test_recovered_pose(kidnap_runs):
     assert rot_angle(Rp, Rg) < 0.02
 
 
+def test_same_ransac_inlier_sets(kidnap_runs):
+    """Every candidate's PnP RANSAC sees the same hypotheses in both
+    packages: the same calls, the same inlier sets and counts."""
+    *_, calls = kidnap_runs
+    assert calls["jax"]
+    assert [c[0] for c in calls["port"]] == [c[0] for c in calls["jax"]]
+    for (_, inl_p, n_p, ok_p, R_p, t_p), (_, inl_j, n_j, ok_j, R_j, t_j) \
+            in zip(calls["port"], calls["jax"]):
+        np.testing.assert_array_equal(inl_p, inl_j)
+        assert (n_p, ok_p) == (n_j, ok_j)
+        np.testing.assert_allclose(R_p, R_j, atol=1e-4)
+        np.testing.assert_allclose(t_p, t_j, atol=1e-4)
+
+
 def test_relocalize_needs_keypoints(kidnap_runs):
     """An all-invalid frame (a blacked-out image) returns early."""
-    _, ps, rows, _ = kidnap_runs
+    _, ps, rows, _, _ = kidnap_runs
     tf = rows[-1][-1]
     dark = tf._replace(valid=torch.zeros_like(tf.valid))
     assert not try_relocalize(ps, ps.loop_closer, dark)
@@ -131,7 +165,7 @@ def test_relocalize_needs_keypoints(kidnap_runs):
 def test_frames_after_recovery(kidnap_runs):
     """The frames tracked after the recovery land where the JAX package's
     do, and near the truth."""
-    js, ps, rows, (Rcw, tcw) = kidnap_runs
+    js, ps, rows, (Rcw, tcw), _ = kidnap_runs
     at = next(n for n in range(N_TRACK, len(rows))
               if rows[n][2].name == "OK")
     after = rows[at + 1:]

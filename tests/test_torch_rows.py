@@ -6,9 +6,9 @@ packages and matched; the JAX package's `monocular_init` with its key for
 frame 1 (`PRNGKey(1)`: the tracker keys the draw with its frame count)
 accepts the pair.  Handed the same `jax.random.categorical` hypotheses,
 the port's `monocular_init_from_indices` accepts it too, with as many
-good points, while the port's own draw (a torch.Generator seeded with the
-frame count) rejects it: the frame the row initializes at is decided by
-the draw, not by the initializer's arithmetic (ROADMAP.md §C item 6).
+good points, and the port's own draw for the key of frame 1 gives those
+very hypotheses and accepts the pair: the row initializes at the JAX
+package's frame (ROADMAP.md §C item 6).
 
 Tolerances: match counts equal; good-point counts within 2 (f32 DLT).
 """
@@ -30,6 +30,7 @@ from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
 from vieo_slam_tpu_torch.frontend import frame as tframe
 from vieo_slam_tpu_torch.ops import matching as tmatching
 from vieo_slam_tpu_torch.solvers import initializer as tinit
+from vieo_slam_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -98,8 +99,10 @@ def _mono_loop_init():
     T = torch.from_numpy
     same_draw = tinit.monocular_init_from_indices(
         T(uv1), T(uv2), T(val), row.sc.cam, T(hyp.astype(np.int64)))
+    np.testing.assert_array_equal(
+        tinit.draw_hypotheses(T(val), prng.prng_key(1)).numpy(), hyp)
     own_draw = tinit.monocular_init(T(uv1), T(uv2), T(val), row.sc.cam,
-                                    torch.Generator().manual_seed(1))
-    assert bool(want.ok) and bool(same_draw.ok)
+                                    prng.prng_key(1))
+    assert bool(want.ok) and bool(same_draw.ok) and bool(own_draw.ok)
     assert abs(int(same_draw.n_good) - int(want.n_good)) <= 2
-    assert not bool(own_draw.ok)
+    assert int(own_draw.n_good) == int(same_draw.n_good)

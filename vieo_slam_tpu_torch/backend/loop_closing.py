@@ -30,6 +30,7 @@ from ..solvers.pose_graph import (
     PoseGraphProblem, correct_landmarks, optimize_pose_graph,
 )
 from ..solvers.sim3_solver import optimize_sim3, sim3_ransac
+from ..utils import prng
 from ..utils.device import resolve_device
 from ..utils.metrics import metrics
 
@@ -247,7 +248,7 @@ class LoopCloser:
 
     def _try_close(self, k: int, c: int) -> bool:
         """ComputeSim3 + CorrectLoop for the candidate pair (k, c); the
-        RANSAC draws from a generator seeded with k."""
+        RANSAC draws with the key of seed k, as the JAX package's."""
         pairs = self._matched_landmark_pairs(k, c)
         if pairs is None:
             return False
@@ -260,7 +261,7 @@ class LoopCloser:
         src[:n], dst[:n], val[:n] = p_k[:n], p_c[:n], True
         res = sim3_ransac(
             self._t(src), self._t(dst), self._t(val),
-            torch.Generator(device=self.device).manual_seed(int(k)),
+            prng.prng_key(int(k)),
             inlier_thresh=self.cfg.inlier_thresh,
             with_scale=not self.cfg.fix_scale)
         if int(res.n_inliers) < self.cfg.min_sim3_inliers:

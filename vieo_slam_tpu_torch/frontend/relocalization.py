@@ -7,8 +7,8 @@ scored by reprojection when the frame has depth for >= 10 matches, else
 six-point DLT PnP), then a projection search of the candidate's
 covisible landmarks at the coarse pose (kernel B4) and a pose
 optimization on the harvested matches.  Each candidate's RANSAC draws
-from a generator seeded with the frame's timestamp in milliseconds, as
-the JAX package seeds its key.
+with the key of the frame's timestamp in milliseconds (`timestamp_seed`),
+the JAX package's own hypotheses for that key (`utils.prng`).
 """
 
 from __future__ import annotations
@@ -22,12 +22,22 @@ from ..math.lie import normalize_rotation_np
 from ..ops import matching
 from ..solvers.motion_ba import PoseObs, pose_optimization
 from ..solvers.pnp_solver import pnp_ransac, pnp_ransac_3d3d
+from ..utils import prng
 from .frame import desc_to_tensor
 from .tracking import TrackState
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def timestamp_seed(timestamp: float) -> int:
+    """The draw's seed: the timestamp in ms, masked to 31 bits, computed
+    as the JAX package computes it with x64 off (an f32 timestamp times
+    1e3 in f32, truncated).  The f64 product differs at some timestamps
+    (0.1 * 163: 16299 in f32, 16300 in f64)."""
+    ms = np.float32(np.float32(timestamp) * np.float32(1e3))
+    return int(ms) & 0x7FFFFFFF
 
 
 def try_relocalize(system, loop_closer, frame) -> bool:
@@ -47,7 +57,7 @@ def try_relocalize(system, loop_closer, frame) -> bool:
     depth = _np(frame.depth)
     rays = _np(cm.unproject(system.cam, frame.uv))
     lvl_f = _np(frame.level)
-    seed = int(frame.timestamp * 1e3) & 0x7FFFFFFF
+    key = prng.prng_key(timestamp_seed(frame.timestamp))
     fx = float(system.cam.fx)
 
     def t(a):
@@ -84,15 +94,14 @@ def try_relocalize(system, loop_closer, frame) -> bool:
         d_rows = depth[rows[:n]]
         has3d = np.zeros(cap, bool)
         has3d[:n] = d_rows > 0
-        gen = torch.Generator(device=dev).manual_seed(seed)
         if has3d.sum() >= 10:
             p_cam = np.zeros((cap, 3), np.float32)
             p_cam[:n] = rays[rows[:n]] * np.maximum(d_rows, 0)[:, None]
             res = pnp_ransac_3d3d(t(p_cam), t(src_rays), t(dst), t(has3d),
-                                  t(val), gen, n_hyp=1024, thresh=5.0 / fx,
+                                  t(val), key, n_hyp=1024, thresh=5.0 / fx,
                                   min_inliers=10)
         else:
-            res = pnp_ransac(t(src_rays), t(dst), t(val), gen, n_hyp=2048,
+            res = pnp_ransac(t(src_rays), t(dst), t(val), key, n_hyp=2048,
                              thresh=5.0 / fx, min_inliers=10)
         if not bool(res.ok):
             continue

@@ -28,6 +28,7 @@ from ..map.map_state import MapState
 from ..math.lie import normalize_rotation_np
 from ..ops import matching
 from ..solvers.motion_ba import PoseObs, pose_optimization
+from ..utils import prng
 from .frame import Frame, desc_to_tensor
 
 
@@ -292,7 +293,7 @@ class Tracker:
         res = monocular_init(
             torch.from_numpy(uv1).to(dev), torch.from_numpy(uv2).to(dev),
             torch.from_numpy(val).to(dev), self.cam,
-            torch.Generator().manual_seed(self.frame_id))
+            prng.prng_key(self.frame_id))
         if not bool(res.ok):
             return
         good = _np(res.good)[:m]

@@ -9,7 +9,8 @@ decomposition) go through the same cheirality + parallax + reprojection
 vote.
 
 Randomness is explicit: `monocular_init` draws the [n_hyp, 8] sample
-indices from a `torch.Generator`; everything else is the deterministic
+indices for a key as the JAX package draws them (`utils.prng`, its
+threefry stream); everything else is the deterministic
 `monocular_init_from_indices`, so a test can feed indices drawn elsewhere.
 Singular vectors carry the sign conventions of `torch.linalg.svd`; R21,
 t21 and `good` do not depend on them.
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..cameras import models as cm
+from ..utils import prng
 from .local_ba import inv3x3
 
 
@@ -136,14 +138,12 @@ def _decompose_homography(Hm):
     return R8, t8 / torch.linalg.norm(t8, dim=-1, keepdim=True).clamp_min(eps)
 
 
-def draw_hypotheses(valid: torch.Tensor, generator: torch.Generator,
+def draw_hypotheses(valid: torch.Tensor, key,
                     n_hyp: int = 256) -> torch.Tensor:
     """[n_hyp, 8] sample indices, uniform over the valid matches with
-    replacement, drawn on the generator's device."""
-    w = valid.to(device=generator.device, dtype=torch.float32)
-    idx = torch.multinomial(w, n_hyp * 8, replacement=True,
-                            generator=generator)
-    return idx.reshape(n_hyp, 8).to(valid.device)
+    replacement: the JAX package's draw for the key
+    (`prng.prng_key(seed)`), on valid's device."""
+    return prng.categorical_valid(key, valid, (n_hyp, 8))
 
 
 def monocular_init_from_indices(
@@ -234,15 +234,16 @@ def monocular_init_from_indices(
 
 
 def monocular_init(uv1: torch.Tensor, uv2: torch.Tensor, valid: torch.Tensor,
-                   cam: cm.Camera, generator: torch.Generator, *,
+                   cam: cm.Camera, key, *,
                    n_hyp: int = 256, sampson_px: float = 1.5,
                    min_inliers: int = 60,
                    min_parallax_cos: float = 0.99995) -> MonoInitResult:
     """Two-view relative pose + structure from matched pixels.
 
-    uv1/uv2: [N, 2] matched keypoints of the two frames; valid: [N].
-    Scale convention: |t21| = 1 (the caller rescales by median depth)."""
-    idx = draw_hypotheses(valid, generator, n_hyp)
+    uv1/uv2: [N, 2] matched keypoints of the two frames; valid: [N]; key
+    the draw's `prng.prng_key`.  Scale convention: |t21| = 1 (the caller
+    rescales by median depth)."""
+    idx = draw_hypotheses(valid, key, n_hyp)
     return monocular_init_from_indices(
         uv1, uv2, valid, cam, idx, sampson_px=sampson_px,
         min_inliers=min_inliers, min_parallax_cos=min_parallax_cos)

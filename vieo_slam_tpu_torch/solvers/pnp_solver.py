@@ -7,10 +7,10 @@ masked reduction, then a weighted all-inlier DLT refit; and the
 depth-sensor variant, 3-point Horn hypotheses scored by reprojection.
 
 Each solver is split into its draw and a deterministic core
-(`*_from_indices`).  The draw samples rows uniformly over the valid
-entries WITH replacement, as the JAX package's `jax.random.categorical`
-over -1e9-masked logits does, from an explicit `torch.Generator` on the
-tensors' device; a test hands the core the JAX package's indices.
+(`*_from_indices`).  The draw is the JAX package's own:
+`jax.random.categorical` over -1e9-masked f32 logits, reproduced from
+the key's threefry stream by `utils.prng` on the tensors' device, so a
+key gives the reference's hypotheses on the CPU and on the card.
 
 The DLT null vector's sign is taken as the SVD returns it, as in the JAX
 package: a hypothesis whose sign comes out negative puts the points
@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import prng
+
 
 class PnPResult(NamedTuple):
     Rcw: torch.Tensor        # [3, 3]
@@ -33,13 +35,12 @@ class PnPResult(NamedTuple):
 
 
 def draw_indices(valid: torch.Tensor, n_hyp: int, size: int,
-                 generator: torch.Generator) -> torch.Tensor:
-    """[n_hyp, size] row indices, uniform over the valid rows (over all
-    rows when none is valid), with replacement."""
-    w = valid.float()
-    w = torch.where(valid.any(), w, torch.ones_like(w))
-    return torch.multinomial(w, n_hyp * size, replacement=True,
-                             generator=generator).reshape(n_hyp, size)
+                 key) -> torch.Tensor:
+    """[n_hyp, size] row indices, uniform over the valid rows with
+    replacement (row 0 everywhere when none is valid): the JAX solvers'
+    `jax.random.categorical(key, where(valid, 0, -1e9), (n_hyp, size))`
+    for the key `prng.prng_key(seed)`."""
+    return prng.categorical_valid(key, valid, (n_hyp, size))
 
 
 def _dlt_rows(xy, pw, w=None):
@@ -119,13 +120,14 @@ def pnp_ransac_from_indices(rays, pw, valid, idx, *, thresh: float = 0.01,
     return _refit_and_pick(R, t, xy, pw, valid, thresh, min_inliers)
 
 
-def pnp_ransac(rays, pw, valid, generator: torch.Generator, *,
+def pnp_ransac(rays, pw, valid, key, *,
                n_hyp: int = 256, thresh: float = 0.01,
                min_inliers: int = 12) -> PnPResult:
     """RANSAC pose from bearing rays [N, 3] (camera frame, any positive
     scale) and matched world points pw [N, 3]; valid [N]; thresh is the
-    inlier gate on the unit plane (pixels / focal length)."""
-    idx = draw_indices(valid, n_hyp, 6, generator)
+    inlier gate on the unit plane (pixels / focal length); key the
+    draw's `prng.prng_key`."""
+    idx = draw_indices(valid, n_hyp, 6, key)
     return pnp_ransac_from_indices(rays, pw, valid, idx, thresh=thresh,
                                    min_inliers=min_inliers)
 
@@ -150,8 +152,8 @@ def pnp_ransac_3d3d_from_indices(p_cam, rays, pw, valid, idx, *,
     return _refit_and_pick(R, t, xy, pw, valid, thresh, min_inliers)
 
 
-def pnp_ransac_3d3d(p_cam, rays, pw, valid3d, valid,
-                    generator: torch.Generator, *, n_hyp: int = 1024,
+def pnp_ransac_3d3d(p_cam, rays, pw, valid3d, valid, key, *,
+                    n_hyp: int = 1024,
                     thresh: float = 0.0125,
                     min_inliers: int = 12) -> PnPResult:
     """RANSAC pose from 3-point Horn hypotheses, reprojection-scored
@@ -160,8 +162,8 @@ def pnp_ransac_3d3d(p_cam, rays, pw, valid3d, valid,
     p_cam [N, 3] camera-frame keypoint 3D (ray * depth); rays [N, 3]
     bearing rays (for scoring); pw [N, 3] matched landmark positions;
     valid3d [N] rows usable for sampling (have depth); valid [N] rows
-    usable for scoring."""
-    idx = draw_indices(valid3d, n_hyp, 3, generator)
+    usable for scoring; key the draw's `prng.prng_key`."""
+    idx = draw_indices(valid3d, n_hyp, 3, key)
     return pnp_ransac_3d3d_from_indices(p_cam, rays, pw, valid, idx,
                                         thresh=thresh,
                                         min_inliers=min_inliers)

@@ -84,13 +84,15 @@ def sim3_ransac_from_indices(p_src, p_dst, valid, idx, *,
                             n_inliers=torch.sum(inliers.int()))
 
 
-def sim3_ransac(p_src, p_dst, valid, generator: torch.Generator, *,
+def sim3_ransac(p_src, p_dst, valid, key, *,
                 n_hyp: int = 128, inlier_thresh: float = 0.05,
                 with_scale: bool = True,
                 refine: bool = True) -> Sim3RansacResult:
     """RANSAC Horn alignment of matched 3D pairs p_src/p_dst [N, 3];
-    inlier_thresh in dst-frame metres."""
-    idx = draw_indices(valid, n_hyp, 3, generator)
+    inlier_thresh in dst-frame metres.  The [n_hyp, 3] triplets are the
+    JAX package's draw for the key (`prng.prng_key(seed)`), so a seed
+    gives the reference's hypotheses."""
+    idx = draw_indices(valid, n_hyp, 3, key)
     return sim3_ransac_from_indices(p_src, p_dst, valid, idx,
                                     inlier_thresh=inlier_thresh,
                                     with_scale=with_scale, refine=refine)
