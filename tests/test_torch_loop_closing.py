@@ -20,9 +20,21 @@ poses within 1e-4; equal SearchAndFuse counts; landmark ids and positions
 within 1e-4 after the correction; GBA poses and the landmarks with a
 stereo observation within the local-BA tolerances of
 tests/test_torch_solvers.py (1e-4), mono-only landmarks in pixels.
+
+The first closure of the stereo_loop row at full width (752x480, 1200
+features, 8 levels, noise seed 0) runs from the JAX package's own state
+just before it: its map and closer at keyframe 46 (frame 180), candidate 5,
+which `scripts/row_parity.py --dump` wrote on the CPU with x64 off
+(tests/data/stereo_loop_752_seed0_closure.npz).  Both closers verify and
+correct that loop; the same checks at the same tolerances, and the
+keyframe ATE against the row's ground truth before and after the
+correction within 1e-4 m of the JAX package's, lowered by more than half.
+The port's vocabulary trainer, given that run's first three keyframes'
+descriptors, returns the vocabulary the run trained (equal nodes).
 """
 
 import copy
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +49,7 @@ from vieo_slam_tpu.backend.loop_closing import (
 from vieo_slam_tpu.cameras import models as jcm
 from vieo_slam_tpu.frontend.frame import make_frame_from_features
 from vieo_slam_tpu.frontend.tracking import TrackerConfig as JTrackerConfig
+from vieo_slam_tpu.io.evaluate import ate as jate
 from vieo_slam_tpu.map.map_state import MapState as JMapState
 from vieo_slam_tpu.sim import world as jworld
 from vieo_slam_tpu.system import System as JSystem
@@ -44,7 +57,11 @@ from vieo_slam_tpu.system import SystemConfig as JSystemConfig
 from vieo_slam_tpu_torch import convert
 from vieo_slam_tpu_torch.backend import loop_closing as tlc
 from vieo_slam_tpu_torch.backend.local_mapping import LocalMapper
+from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
+from vieo_slam_tpu_torch.io.evaluate import ate as tate
 from vieo_slam_tpu_torch.solvers.sim3_solver import sim3_ransac_from_indices
+
+from jax_loop_state import jax_closer_from_state, kf_ate
 
 # One intra-op thread: the suite runs several worker processes at once and
 # the tensors here are small, so more threads only contend for the cores.
@@ -53,6 +70,39 @@ torch.set_num_threads(1)
 CAM = (400.0, 400.0, 320.0, 240.0, 640, 480)
 BF = 400.0 * 0.2
 OUT = 6               # frames out; the camera then retraces them
+FULLWIDTH_STATE = (Path(__file__).parent / "data"
+                   / "stereo_loop_752_seed0_closure.npz")
+
+
+def hook_corrections(jlc, plc) -> dict:
+    """Record the S_ck each closer corrects with, under "jax" / "port"."""
+    seen = {}
+    for name, lc in (("jax", jlc), ("port", plc)):
+        def hook(k_, c_, S_ck, lc=lc, name=name,
+                 orig=type(lc)._correct_loop):
+            seen[name] = tuple(np.array(x, np.float64) for x in S_ck)
+            orig(lc, k_, c_, S_ck)
+        lc._correct_loop = hook
+    return seen
+
+
+def try_close_both(jlc, plc, k, c):
+    """_try_close(k, c) on both closers, the port handed the Sim3 RANSAC
+    samples the JAX package draws (under the suite's x64 its logits are
+    f64, which the port's f32 draw does not reproduce)."""
+    def jax_draws(src, dst, valid, key, **kw):
+        logits = jnp.where(jnp.asarray(valid.numpy()), 0.0, -1e9)
+        idx = jax.random.categorical(jax.random.PRNGKey(k), logits,
+                                     shape=(128, 3))
+        return sim3_ransac_from_indices(
+            src, dst, valid, torch.from_numpy(np.array(idx)).long(), **kw)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tlc, "sim3_ransac", jax_draws)
+    try:
+        return jlc._try_close(k, c), plc._try_close(k, c)
+    finally:
+        mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -85,27 +135,8 @@ def closed():
     kfs = js.map.keyframe_ids()
     k, c = int(kfs[-1]), int(kfs[0])
 
-    # record the S_ck each closer corrects with
-    seen = {}
-    for name, lc in (("jax", jlc), ("port", plc)):
-        def hook(k_, c_, S_ck, lc=lc, name=name,
-                 orig=type(lc)._correct_loop):
-            seen[name] = tuple(np.array(x, np.float64) for x in S_ck)
-            orig(lc, k_, c_, S_ck)
-        lc._correct_loop = hook
-
-    def jax_draws(src, dst, valid, key, **kw):
-        logits = jnp.where(jnp.asarray(valid.numpy()), 0.0, -1e9)
-        idx = jax.random.categorical(jax.random.PRNGKey(k), logits,
-                                     shape=(128, 3))
-        return sim3_ransac_from_indices(
-            src, dst, valid, torch.from_numpy(np.array(idx)).long(), **kw)
-
-    mp = pytest.MonkeyPatch()
-    mp.setattr(tlc, "sim3_ransac", jax_draws)
-    ok_j = jlc._try_close(k, c)
-    ok_p = plc._try_close(k, c)
-    mp.undo()
+    seen = hook_corrections(jlc, plc)
+    ok_j, ok_p = try_close_both(jlc, plc, k, c)
     after = (js.map.kf_Rcw.copy(), js.map.kf_tcw.copy(),
              pmap.kf_Rcw.copy(), pmap.kf_tcw.copy(),
              js.map.lm_valid.copy(), pmap.lm_valid.copy(),
@@ -275,3 +306,80 @@ def test_gba_write_back_reanchors_and_notifies(closed):
     np.testing.assert_allclose(sp.pushed[0][0], new_before[0], atol=0)
     np.testing.assert_allclose(sp.pushed[0][2], pm.kf_Rcw[newest], atol=0)
     assert pm.big_change_idx == jm.big_change_idx
+
+
+# ---------------------------------------------------------------------------
+# The full-width loop closure from the JAX package's own state
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fullwidth_closed():
+    z = np.load(FULLWIDTH_STATE)
+    k, c, _ = (int(x) for x in z["try_close_kc"])
+    jlc, jcam = jax_closer_from_state(z)
+    pmap = convert.map_from_jax(jlc.map)
+    plc = convert.loop_closer_from_jax(jlc, convert.camera_from_jax(jcam),
+                                       pmap, device="cpu")
+    sc = ev.scenario("stereo_loop", 360, 752, 1200, 8)
+
+    def ates():
+        return (kf_ate(jlc.map, jate, sc.ts, sc.twc, False),
+                kf_ate(pmap, tate, sc.ts, sc.twc, False))
+
+    before = ates()
+    seen = hook_corrections(jlc, plc)
+    ok = try_close_both(jlc, plc, k, c)
+    after = ates()
+    return dict(jlc=jlc, plc=plc, k=k, c=c, ok=ok, seen=seen,
+                before=before, after=after)
+
+
+def test_fullwidth_closure_accepted_identically(fullwidth_closed):
+    r = fullwidth_closed
+    assert (r["k"], r["c"]) == (46, 5)
+    assert r["ok"] == (True, True)
+    assert r["plc"].last_fuse_count == r["jlc"].last_fuse_count > 0
+    (a, b, _, _), = r["plc"].loop_edges
+    (a2, b2, _, _), = r["jlc"].loop_edges
+    assert (a, b) == (a2, b2) == (r["k"], r["c"])
+
+
+def test_fullwidth_sim3_poses_landmarks(fullwidth_closed):
+    r = fullwidth_closed
+    for a, b in zip(r["seen"]["port"], r["seen"]["jax"]):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    jm, pm = r["jlc"].map, r["plc"].map
+    kfs = jm.keyframe_ids()
+    np.testing.assert_array_equal(pm.keyframe_ids(), kfs)
+    np.testing.assert_allclose(pm.kf_Rcw[kfs], jm.kf_Rcw[kfs], atol=1e-4)
+    np.testing.assert_allclose(pm.kf_tcw[kfs], jm.kf_tcw[kfs], atol=1e-4)
+    np.testing.assert_array_equal(pm.lm_valid, jm.lm_valid)
+    np.testing.assert_array_equal(pm.kf_lm_idx[kfs], jm.kf_lm_idx[kfs])
+    np.testing.assert_allclose(pm.lm_pw[jm.lm_valid], jm.lm_pw[jm.lm_valid],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_fullwidth_closure_lowers_the_ate(fullwidth_closed):
+    """Both closures cut the keyframe ATE (the JAX package's from 0.01566
+    to 0.00565 m with x64 off) by the same amount."""
+    r = fullwidth_closed
+    (bj, bp), (aj, ap) = r["before"], r["after"]
+    assert abs(bp - bj) < 1e-6
+    assert aj < 0.5 * bj
+    assert abs(ap - aj) < 1e-4, (ap, aj)
+
+
+def test_fullwidth_vocabulary_from_the_first_keyframes():
+    """The port's train_vocabulary, given the JAX run's first three
+    keyframes' descriptors (the set the closer trains from at the third
+    keyframe), returns the vocabulary that run trained: equal nodes, idf
+    within 1e-6."""
+    z = np.load(FULLWIDTH_STATE)
+    k, L = (int(x) for x in z["voc_kL"])
+    desc = np.concatenate([z["map_kf_desc"][i][z["map_kf_kp_valid"][i]]
+                           for i in range(3)])
+    voc = tlc.train_vocabulary(desc, k=k, L=L, seed=0)
+    np.testing.assert_array_equal(
+        np.asarray(voc.node_desc).view(np.uint32), z["voc_node_desc"])
+    np.testing.assert_allclose(np.asarray(voc.idf), z["voc_idf"], atol=1e-6)

@@ -343,8 +343,8 @@ def rgbd_runs(request):
     jcfg = JSystemConfig(sensor=JSensorMode.RGBD,
                          tracker=JTrackerConfig(use_predicted_scale=True))
     js = JSystem(jcm.make_pinhole(*CAM), BF, jcfg)
-    pcfg = convert.system_config_from_jax(
-        jcfg, tracker=TrackerConfig(use_predicted_scale=True))
+    pcfg = convert.system_config_from_jax(jcfg)
+    assert pcfg.tracker == TrackerConfig(use_predicted_scale=True)
     assert pcfg.sensor is SensorMode.RGBD
     ps = System(tcm.make_pinhole(*CAM), BF, pcfg, device="cpu")
     rng = np.random.RandomState(5)

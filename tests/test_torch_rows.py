@@ -106,3 +106,32 @@ def _mono_loop_init():
     assert bool(want.ok) and bool(same_draw.ok) and bool(own_draw.ok)
     assert abs(int(same_draw.n_good) - int(want.n_good)) <= 2
     assert int(own_draw.n_good) == int(same_draw.n_good)
+
+
+def test_row_parity_scales_the_jax_example():
+    """scripts/row_parity.py runs the JAX example at another size by
+    rewriting its camera and ORB lines in memory: the camera is the port's
+    scenario() camera at that width, the ORB configuration the one asked
+    for, and at the rows' own size the source is unchanged in effect."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "row_parity", os.path.join(ROOT, "scripts", "row_parity.py"))
+    rp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rp)
+    src = rp.jax_example_source(752, 1200, 8)
+    assert rp.JAX_CAMERA not in src and rp.JAX_ORB not in src
+    assert "OrbConfig(n_features=1200, n_levels=8)" in src
+    ns = {}
+    exec(src[src.index("    cam = cm.make_pinhole"):
+             src.index("    bf = fx")].strip(),
+         {"cm": jcm, "fx": 400.0}, ns)
+    sc = ev.scenario("stereo_loop", 4, 752, 1200, 8)
+    for a in ("fx", "fy", "cx", "cy", "width", "height"):
+        assert float(np.asarray(getattr(ns["cam"], a))) \
+            == float(getattr(sc.cam, a)), a
+    assert sc.ocfg.n_features == 1200 and sc.ocfg.n_levels == 8
+    own = rp.jax_example_source(640, None, 4)
+    assert 'n_features=1000 if base == "mono" else 600, n_levels=4' in own
+    assert "cm.make_pinhole(fx * 1.0, fx * 1.0, 320.0, 240.0, 640, 480)" \
+        in own

@@ -17,9 +17,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .backend.local_mapping import LocalMappingConfig
 from .backend.loop_closing import LoopCloser, LoopClosingConfig
 from .cameras import models as cm
 from .frontend.frame import Frame, make_frame_from_features
+from .frontend.tracking import TrackerConfig
 from .io.odom_ring import OdomRing
 from .loop.keyframe_db import KeyFrameDatabase
 from .loop.vocabulary import Vocabulary
@@ -57,17 +59,21 @@ def camera_from_jax(jcam) -> cm.Camera:
                         dist=np.array(np.asarray(jcam.dist), np.float32))
 
 
+def _fields_from_jax(cls, jcfg):
+    """A port configuration dataclass with the JAX configuration's values
+    of its fields."""
+    return cls(**{f.name: getattr(jcfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
 def orb_config_from_jax(jcfg) -> OrbConfig:
-    return OrbConfig(**{f.name: getattr(jcfg, f.name)
-                        for f in dataclasses.fields(OrbConfig)})
+    return _fields_from_jax(OrbConfig, jcfg)
 
 
 def map_from_jax(jmap) -> MapState:
     """A copy of the JAX package's MapState (keyframe poses, landmarks,
     descriptors, observations and counters)."""
-    cfg = MapConfig(**{f.name: getattr(jmap.cfg, f.name)
-                       for f in dataclasses.fields(MapConfig)})
-    m = MapState(cfg)
+    m = MapState(_fields_from_jax(MapConfig, jmap.cfg))
     for name in _MAP_ARRAYS:
         setattr(m, name, np.array(getattr(jmap, name), copy=True))
     m.version = int(jmap.version)
@@ -88,22 +94,19 @@ def frame_from_jax(jframe, device=None) -> Frame:
         timestamp=float(np.asarray(jframe.timestamp)), device=device)
 
 
-def system_config_from_jax(jcfg, tracker=None, mapper=None) -> SystemConfig:
-    """The port's SystemConfig with the JAX SystemConfig's sensor mode, map
-    sizes and async-mapping fields; tracker and mapper configurations are
-    passed as the port's own (their JAX counterparts carry fields of
-    slices not ported yet)."""
-    cfg = SystemConfig(
+def system_config_from_jax(jcfg) -> SystemConfig:
+    """The port's SystemConfig from the JAX SystemConfig: sensor mode, map
+    sizes, tracker and local-mapping configurations, localization mode and
+    the async-mapping fields.  The JAX TrackerConfig's max_level_tolerance,
+    which the JAX package declares and never reads, has no counterpart."""
+    return SystemConfig(
         sensor=SensorMode[jcfg.sensor.name],
-        map=MapConfig(**{f.name: getattr(jcfg.map, f.name)
-                         for f in dataclasses.fields(MapConfig)}),
+        map=_fields_from_jax(MapConfig, jcfg.map),
+        tracker=_fields_from_jax(TrackerConfig, jcfg.tracker),
+        mapper=_fields_from_jax(LocalMappingConfig, jcfg.mapper),
+        localization_only=bool(jcfg.localization_only),
         async_mapping=bool(jcfg.async_mapping),
         kf_queue_depth=int(jcfg.kf_queue_depth))
-    if tracker is not None:
-        cfg.tracker = tracker
-    if mapper is not None:
-        cfg.mapper = mapper
-    return cfg
 
 
 def mono_init_result_from_jax(jres, device="cpu") -> MonoInitResult:
@@ -120,8 +123,7 @@ def vocabulary_from_jax(jvoc) -> Vocabulary:
 
 
 def loop_closing_config_from_jax(jcfg) -> LoopClosingConfig:
-    return LoopClosingConfig(**{f.name: getattr(jcfg, f.name)
-                                for f in dataclasses.fields(LoopClosingConfig)})
+    return _fields_from_jax(LoopClosingConfig, jcfg)
 
 
 def loop_closer_from_jax(jlc, cam: cm.Camera, map_state: MapState,
@@ -164,8 +166,7 @@ def imu_preint_from_jax(jpre, device="cpu") -> ImuPreint:
 
 
 def vio_config_from_jax(jcfg) -> VioConfig:
-    return VioConfig(**{f.name: getattr(jcfg, f.name)
-                        for f in dataclasses.fields(VioConfig)})
+    return _fields_from_jax(VioConfig, jcfg)
 
 
 def odom_ring_from_jax(jring) -> OdomRing:
@@ -219,8 +220,7 @@ def vio_frontend_from_jax(jvio, system) -> VioFrontend:
 
 
 def encoder_config_from_jax(jcfg) -> EncoderConfig:
-    return EncoderConfig(**{f.name: getattr(jcfg, f.name)
-                            for f in dataclasses.fields(EncoderConfig)})
+    return _fields_from_jax(EncoderConfig, jcfg)
 
 
 def encoder_frontend_from_jax(jveo, system) -> EncoderFrontend:
