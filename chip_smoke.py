@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      30 % of the reference's 0.22862 m.  The bars of a tracked mono
      sequence (no LOST frame, ATE under 0.02 m) are phase 23's, on the
      mono_loop row.
-  8. profile: the last 6 frames of a 14-frame full-width stereo run under
+  8. profile: the last 4 frames of a 10-frame full-width stereo run under
      torch.profiler -- device busy share, device ops and host waits per
      frame, the device time of each stage and the top device entries.
   9. stereo blackout at full width (place recognition): the
@@ -74,13 +74,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      min_kf_gap 30), same sizes, seed 0 alone.  Bars: 0 LOST, a loop
      closed, fused points > 0, keyframe ATE after the final global BA <
      0.02 m, B3 and B4 launched inside loop_closer.process_keyframe.  Held
-     to the JAX package's run (ACCURACY_fullwidth.json): the first
-     closure's keyframe within 3 of its, the keyframe ATE after the final
-     GBA within 30 % or 1 mm of its.  The keyframe ATE right after the
-     first closure is printed beside the JAX package's and not held: which
-     pair closes first follows the vocabulary trained from the first
-     keyframes' descriptors, whose f32 bits differ between the packages
-     and between runs on the card (PERF.md §6, PR 13).  Prints both
+     to the JAX package's run (ACCURACY_fullwidth.json): the first closure
+     the same pair of keyframes (46 to 5), the keyframe ATE right after it
+     and after the final GBA within 30 % or 1 mm of its.  Which pair closes
+     first follows the vocabulary trained from the first keyframes'
+     descriptors, which the extraction now computes bit for bit as the JAX
+     package does (phase 24; PERF.md §6).  Prints both
      packages' closure records, and the
      keyframe ATE before and after the first closure and without and with
      the final GBA, the ms of relocalization, loop closing (split between
@@ -108,7 +107,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
  13. vio_blackout: the same with frames 36-47 black.  Bars: 0 LOST, the
      black frames ODOMOK, 0 relocalizations, OK from frame 50 on, keyframe
      ATE after the recovery < 0.02 m.
- 14. vio_loop: the stereo_loop world, two laps (360 frames) with the IMU.
+ 14. vio_loop: the stereo_loop world with the IMU, its first 270 frames
+     (one and a half laps of the row's two: the first closure comes near
+     frame 180; cut for the script's time).
      Bars: 0 LOST, the final VI init reached, the PRV window BA run, one
      loop closed, fused points > 0, keyframe ATE after the final GBA < 0.02
      m, the window BA's chain blocks replayed from their CUDA graphs equal
@@ -193,10 +194,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      System.shutdown(print_report=True)'s table with its frame and track
      rows.  Prints the median ms of a frame.  (b) The stereo_lem row of
      examples/evaluate_ntimes.py at its own size (640x480, 600 features,
-     4 levels, 360 frames of the figure-eight), seed 11, with a
+     4 levels, the first 180 frames of the figure-eight: one lap of the
+     row's two, cut for the script's time), seed 11, with a
      viz.Viewer(every_n_kf=5) polling.  Bars: keyframe ATE after the final
      GBA finite and < 0.05 m, a viewer PNG read back with drawn pixels.
-     Prints the row's numbers beside ACCURACY_r05.json's means.  (c)
+     Prints the row's numbers beside ACCURACY_r05.json's means (of the
+     two-lap row).  (c)
      extract_orb_batch of phase 5's stereo pair under ORB_BATCHED_SELECT
      off, on and concat: equal in every field; the median ms of each.
      (d) mutual_filter on the card equal to the CPU.  (e) entry(): the
@@ -211,6 +214,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      first OK frame is the JAX package's (JAX_MONO_LOOP_INIT_FRAME), no
      frame is LOST and the scale-aligned keyframe ATE RMSE stays under
      0.02 m.  Prints its seconds.
+
+ 24. extraction bits (`extraction_bits_phase`): the stereo_loop row at
+     noise seed 0, 752x480, frames 0-5 rendered in turn; the card's
+     extract_orb of the left images of frames 0, 1 and 5 must equal the
+     JAX package's features of its keyframe slots 0-2
+     (tests/data/stereo_loop_752_seed0_closure.npz: uv, level, descriptor
+     and valid, byte for byte), through the ops/xla_f32 kernels (counters
+     zeroed before).  Then the card's pyramid of frame 0, the moments and
+     angles of 4000 random patches, and atan2 / sin / cos of the inputs in
+     tests/data/xla_f32_libm.npz, each equal to the CPU build's bits.
 
 Stdout ends with three lines: the kernels JSON, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -255,6 +268,9 @@ MONO_OMEGA = 0.35
 # repeat across seeds).
 PLACE_SEEDS = (0, 11)
 LOOP_SEED = PLACE_SEEDS[0]
+# Phase 14's frames of the vio_loop row (one and a half laps; the row's
+# 360 took ~236 s of the script's time on the H100).
+VIO_LOOP_FRAMES = 270
 # Phase 15's final-acceptance span of the VI init (the rows' 15 s needs
 # more frames than the 60 of stereo_vio): past it the PRV window BA runs.
 VIO_ASYNC_FINAL_SPAN = 4.0
@@ -282,10 +298,16 @@ JAX_MONO_LOOP_INIT_FRAME = 1
 # same for --row stereo_loop --seed 0, on the CPU with x64 off).  A count
 # or an ATE agrees within 30 % of the JAX package's, or within one (a
 # count) or 1 mm (an ATE) where that is more: scripts/vio_rows.py's row
-# bounds.  The first closure's keyframe agrees within FIRST_CLOSURE_KF_TOL.
+# bounds.  The loop row's first closure is the same pair of keyframes.
 FULLWIDTH_REF = "ACCURACY_fullwidth.json"
 REF_REL_TOL = 0.3
-FIRST_CLOSURE_KF_TOL = 3
+# Phase 24: the JAX package's state at its seed-0 closure of the loop row
+# (752x480), whose keyframe slots 0-2 are frames KF_FRAMES, and the CPU
+# build's atan2 / sin / cos of fixed inputs (scripts/xla_order.py
+# --save-libm).
+CLOSURE_STATE = "tests/data/stereo_loop_752_seed0_closure.npz"
+KF_FRAMES = (0, 1, 5)
+LIBM_REF = "tests/data/xla_f32_libm.npz"
 
 
 _T0 = time.perf_counter()
@@ -1118,14 +1140,15 @@ def rig_images(rig):
 
 
 def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
-            profile=None, async_mapping=None, vio_cfg=None, cams=None):
+            profile=None, async_mapping=None, vio_cfg=None, cams=None,
+            n_frames=None):
     """One row of the port's evaluate_ntimes.py at full width, driven
     frame by frame by its `Row` (the one copy of the rows), with the
     diagnostics of this script around it: stereo_blackout, stereo_loop,
     stereo_async, stereo_vio, vio_blackout, vio_loop, vieo, veo /
     veo_blackout, multicam_kb8 / multicam4_kb8 (or the rig `cams` = (rig,
     geometry camera)) and map_reuse, 360 frames for a loop row and 60
-    otherwise.
+    otherwise (or `n_frames`: the row's first frames).
     Returns a dict of the system (and the front end), the states, the
     ATEs, the launches counted and the host seconds spent inside the
     relocalization calls, inside loop_closer.process_keyframe and inside
@@ -1148,7 +1171,8 @@ def run_row(torch, dev, row, seed, width=752, n_features=1200, n_levels=8,
     from vieo_slam_tpu_torch.system import System
     from vieo_slam_tpu_torch.utils.metrics import metrics
 
-    n = 2 * ev.LOOP_FRAMES_PER_LAP if row.endswith("_loop") else 60
+    n = n_frames or (2 * ev.LOOP_FRAMES_PER_LAP if row.endswith("_loop")
+                     else 60)
     metrics.reset()
     r = ev.Row(row, seed, n, dev, width, n_features, n_levels,
                async_mapping=async_mapping, vio_cfg=vio_cfg, rig=cams)
@@ -2045,10 +2069,11 @@ def supporting_code_phase(torch, dev, launches_place):
                   "gather_patches": EUROC_FRAMES, "tail_fused": 0},
                  ("fused_best2", "fused_projection_best2"))
 
-    # (b) the stereo_lem row at its own size with the viewer polling
+    # (b) the stereo_lem row at its own size with the viewer polling, one
+    # lap of its two (cut for the script's time)
     tag = "[22b stereo_lem, seed 11]"
     t0 = time.perf_counter()
-    n = 2 * ev.LOOP_FRAMES_PER_LAP
+    n = ev.LOOP_FRAMES_PER_LAP
     cuda_build.reset_launches()
     row = ev.Row("stereo_lem", 11, n, dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2191,6 +2216,77 @@ def draw_parity_phase(torch, dev):
     if first != JAX_MONO_LOOP_INIT_FRAME or lost or not kf_ate < 0.02:
         fail("mono_loop does not start as the JAX package's row does")
     log(f"[23 draws] {time.perf_counter() - t_phase:.1f} s")
+
+
+def extraction_bits_phase(torch, dev):
+    """24. The card's ORB extraction against the JAX package's bits."""
+    from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
+    from vieo_slam_tpu_torch.ops import orb, xla_f32
+
+    tag = "[24 extraction bits]"
+    t0 = time.perf_counter()
+    z = np.load(ROOT / CLOSURE_STATE)
+    row = ev.Row("stereo_loop", 0, 360, device=dev, width=752,
+                 n_features=1200, n_levels=8)
+    left = [row.prepare(i)[0] for i in range(6)]    # the noise runs on
+    cfg = orb.OrbConfig(1200, 8)
+    xla_f32.reset_launches()
+    diffs = []
+    for slot, i in enumerate(KF_FRAMES):
+        f = orb.extract_orb(torch.from_numpy(left[i]).to(dev), cfg,
+                            device=dev)
+        got = {k: getattr(f, k).cpu().numpy() for k in
+               ("uv", "level", "desc", "valid")}
+        want = {"uv": z["map_kf_uv"][slot], "level": z["map_kf_level"][slot],
+                "desc": z["map_kf_desc"][slot].view(np.int32),
+                "valid": z["map_kf_kp_valid"][slot]}
+        diffs.append({k: int((np.ascontiguousarray(got[k]).view(np.uint8)
+                              != np.ascontiguousarray(want[k]).view(
+                                  np.uint8)).sum()) for k in got})
+    launched = dict(xla_f32.LAUNCHES)
+    log(f"{tag} stereo_loop seed 0, frames {KF_FRAMES} (keyframe slots 0-2 "
+        f"of {CLOSURE_STATE}): bytes that differ from the JAX package's "
+        f"features {diffs}; xla_f32 launches {launched}")
+    if any(v for d in diffs for v in d.values()):
+        fail("the card's extraction of the loop row's first keyframes "
+             "differs from the JAX package's features")
+    if not all(launched[k] for k in ("resize", "ic_angle", "brief",
+                                     "blur7")):
+        fail(f"extraction did not run the xla_f32 kernels: {launched}")
+    # The card's pyramid, moments and angles against the CPU build's on the
+    # same inputs; the card's atan2 / sin / cos against the CPU build's
+    # outputs saved with the test data (scripts/xla_order.py --save-libm).
+    img = torch.from_numpy(left[0])
+    card = orb.build_pyramid(img.to(dev), cfg)
+    cpu = orb.build_pyramid(img, cfg)
+    pyr = sum(int((c.cpu().numpy().view(np.int32)
+                   != h.numpy().view(np.int32)).sum())
+              for c, h in zip(card, cpu))
+    rng = np.random.RandomState(24)
+    patches = torch.from_numpy((rng.rand(4000, 31, 31) * 255)
+                               .astype(np.float32))
+    a_card, m_card = xla_f32.ic_angle(patches.to(dev), moments=True)
+    a_cpu, m_cpu = xla_f32.ic_angle(patches, moments=True)
+    mom = int((m_card.cpu().numpy().view(np.int32)
+               != m_cpu.numpy().view(np.int32)).sum())
+    ang = int((a_card.cpu().numpy().view(np.int32)
+               != a_cpu.numpy().view(np.int32)).sum())
+    ref = np.load(ROOT / LIBM_REF)
+    t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+    libm = {}
+    for name, got in (("atan2", xla_f32.atan2(t(ref["y"]), t(ref["x"]))),
+                      ("sin", xla_f32.sin(t(ref["v"]))),
+                      ("cos", xla_f32.cos(t(ref["v"])))):
+        g, w = got.cpu().numpy(), ref[name]
+        libm[name] = int(((g.view(np.int32) != w.view(np.int32))
+                          & ~(np.isnan(g) & np.isnan(w))).sum())
+    log(f"{tag} card against the CPU build: pyramid of frame 0 "
+        f"({sum(x.numel() for x in cpu)} pixels on 8 levels) {pyr} differ; "
+        f"4000 random patches: moments {mom}, angles {ang} differ; against "
+        f"{LIBM_REF}: {libm} of {len(ref['y'])} / {len(ref['v'])} inputs "
+        f"differ ({time.perf_counter() - t0:.1f} s)")
+    if pyr or mom or ang or any(libm.values()):
+        fail("the card's extraction stages differ from the CPU build's")
 
 
 def main():
@@ -2379,7 +2475,7 @@ def main():
     # 8. where the time goes: the last frames of a shorter full-width run
     # under torch.profiler (after the counted runs, so it adds no launches
     # to their counts)
-    n_prof, prof_from = 14, 8
+    n_prof, prof_from = 10, 6
     *_, (prof, prof_s) = run_sequence(torch, dev, 752, 1200, 8, n_prof,
                                       profile_from=prof_from)
     prof8 = summarize_profile(prof, prof_s, n_prof - prof_from)
@@ -2497,10 +2593,14 @@ def main():
         f"without / with the final GBA {lp['ate_no_gba']:.6g} / "
         f"{lp['ate_gba']:.6g} m against {jl['numbers']['rmse_noFullBA']:.6g} "
         f"/ {jl['numbers']['rmse_fullBA']:.6g} m")
-    if abs(first[0] - jfirst["k"]) > FIRST_CLOSURE_KF_TOL:
-        fail(f"stereo loop, seed {seed}: the first closure at keyframe "
-             f"{first[0]}, not within {FIRST_CLOSURE_KF_TOL} of the JAX "
-             f"package's {jfirst['k']}")
+    if (first[0], first[1]) != (jfirst["k"], jfirst["c"]):
+        fail(f"stereo loop, seed {seed}: the first closure is keyframe "
+             f"{first[0]} to {first[1]}, not the JAX package's "
+             f"{jfirst['k']} to {jfirst['c']}")
+    if not near(first[3], jfirst["ate_after"], 1e-3):
+        fail(f"stereo loop, seed {seed}: the keyframe ATE after the first "
+             f"closure {first[3]:.6g} m is not within {REF_REL_TOL:.0%} or "
+             f"1 mm of the JAX package's {jfirst['ate_after']:.6g} m")
     if not near(lp["ate_gba"], jl["numbers"]["rmse_fullBA"], 1e-3):
         fail(f"stereo loop, seed {seed}: the ATE with the final GBA "
              f"{lp['ate_gba']:.6g} m is not within {REF_REL_TOL:.0%} or 1 mm "
@@ -2558,7 +2658,8 @@ def main():
         tag = f"[{phase} {row}, seed 0]"
         cuda_build.reset_launches()
         out = run_row(torch, dev, row, 0,
-                      profile=(53, 54) if row == "stereo_vio" else None)
+                      profile=(53, 54) if row == "stereo_vio" else None,
+                      n_frames=VIO_LOOP_FRAMES if row == "vio_loop" else None)
         launches_place[row, None] = dict(cuda_build.LAUNCHES)
         system, vio, states = out["system"], out["front"], out["states"]
         rep_ = out["report"]
@@ -2700,6 +2801,8 @@ def main():
     # 23. the RANSAC draws on the card against the CPU; the start of the
     # mono_loop row
     draw_parity_phase(torch, dev)
+    # 24. the card's extraction against the JAX package's bits
+    extraction_bits_phase(torch, dev)
 
     meta = {
         "fast_nms_blend": ("fast_nms.cu", "vieo_slam_tpu/ops/pallas_fast.py:99",
@@ -2740,7 +2843,7 @@ def main():
                                  "survivors", "corners") if x in r},
             "rig": {case: r for case, r in rig_kernels.items()
                     if case.split()[0] == meta[k][2]}})
-    log(f"[done] phases 1-23 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-24 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

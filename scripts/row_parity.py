@@ -47,9 +47,6 @@ and --replay NPZ starts both closers from it: the JAX package's on the
 CPU, the port's on --device; it needs the JAX package).  With
 --vocabulary NPZ each side's loop closer adopts the vocabulary of such a
 state where it would train its own from the first keyframes.
---f32-resize builds the port's pyramid with resize weights computed in
-f32 as XLA computes them with x64 off, the rows' mode (the port computes
-them as JAX does with x64 on, the test suite's mode).
 
 --seed takes a comma list.  --out merges into the file it names: each
 (row, seed, side) goes under scenarios/<row>/seeds/<seed>/<side>, and
@@ -479,42 +476,15 @@ def run_jax(row: str, seed: int, frames: int, width: int = 640,
              "closures": closures}, calls, tries)
 
 
-def resize_weights_f32(in_size: int, out_size: int) -> np.ndarray:
-    """The port's ops/orb.py _resize_weights computed in f32, as XLA
-    computes jax.image.resize's weights with x64 off (the sample position
-    as one fused multiply-add, the division by the kernel width as a
-    product with its f32 reciprocal; equal to XLA's up to a few ulps where
-    its vector loop rounds otherwise), where the port computes them in f64
-    as JAX does with x64 on."""
-    f32 = np.float32
-    inv_scale = f32(in_size / out_size)
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = ((np.arange(out_size, dtype=f32) + f32(0.5)).astype(np.float64)
-                * np.float64(inv_scale) - 0.5).astype(f32)
-    x = (np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None])
-         * (f32(1.0) / kernel_scale))
-    w = np.maximum(f32(0.0), f32(1.0) - x)
-    tot = w.sum(axis=0, keepdims=True, dtype=f32)
-    w = np.where(np.abs(tot) > 1000.0 * float(np.finfo(f32).eps),
-                 w / np.where(tot != 0, tot, f32(1.0)), f32(0.0))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
-
-
 def run_port(row: str, seed: int, frames: int, device: str,
              width: int = 640, features=None, levels: int = 4,
-             dump: bool = False, vocabulary=None, f32_resize=False):
+             dump: bool = False, vocabulary=None):
     import torch
 
     from vieo_slam_tpu_torch.backend import loop_closing as tlc
     from vieo_slam_tpu_torch.examples import evaluate_ntimes as ev
     from vieo_slam_tpu_torch.io.evaluate import ate as tate
-    from vieo_slam_tpu_torch.ops import orb as torb
     from vieo_slam_tpu_torch.solvers import initializer as tinit
-
-    resize_weights = torb._resize_weights
-    if f32_resize:
-        torb._resize_weights = resize_weights_f32
 
     if device.startswith("cuda"):
         from vieo_slam_tpu_torch.ops import cuda_build
@@ -559,7 +529,6 @@ def run_port(row: str, seed: int, frames: int, device: str,
     finally:
         tinit.monocular_init = orig
         tlc.train_vocabulary = train
-        torb._resize_weights = resize_weights
         restore()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -629,9 +598,6 @@ def main():
                     help="a closure state (--dump) whose vocabulary each "
                          "side's loop closer adopts where it would train "
                          "its own")
-    ap.add_argument("--f32-resize", action="store_true",
-                    help="the port's pyramid with resize weights computed "
-                         "in f32 (resize_weights_f32)")
     ap.add_argument("--dump", default=None)
     ap.add_argument("--replay", default=None,
                     help="a closure state (--dump): run both closers' "
@@ -667,8 +633,7 @@ def main():
                 res, calls, tries = run_port(args.row, seed, frames,
                                              args.device, **size,
                                              dump=bool(args.dump),
-                                             vocabulary=args.vocabulary,
-                                             f32_resize=args.f32_resize)
+                                             vocabulary=args.vocabulary)
                 tag = f"port_{args.device.split(':')[0]}"
             res["seconds"] = time.perf_counter() - t0
             res["verifications"] = [{k: v for k, v in t.items()

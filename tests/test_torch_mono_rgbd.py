@@ -291,8 +291,12 @@ def assert_features_agree(tf, jf):
 def test_build_mono_frame_matches_jax(jax_fused_tail):
     img = rendered()
     cfg_j, cfg_t = jorb.OrbConfig(400, 4), torb.OrbConfig(400, 4)
-    jf = jax.jit(lambda im: jframe.build_mono_frame(im, cfg_j, timestamp=0.3))(
-        J(img))
+    # The JAX package's features as its System computes them (x64 off), with
+    # the f64 timestamp that x64 keeps (x64 off rounds it to f32).
+    with jax.enable_x64(False):
+        jf = jax.jit(lambda im: jframe.build_mono_frame(
+            im, cfg_j, timestamp=0.3))(J(img))
+    jf = jf._replace(timestamp=jnp.asarray(0.3, jnp.float64))
     tf = tframe.build_mono_frame(img, cfg_t, timestamp=0.3, device="cpu")
     assert_features_agree(tf, jf)
     for name in ("ur", "depth"):
@@ -307,8 +311,10 @@ def test_build_mono_frame_matches_jax(jax_fused_tail):
 def test_build_rgbd_frame_matches_jax(jax_fused_tail):
     img, depth = rendered(depth=True)
     cfg_j, cfg_t = jorb.OrbConfig(400, 4), torb.OrbConfig(400, 4)
-    jf = jax.jit(lambda im, d: jframe.build_rgbd_frame(
-        im, d, cfg_j, bf=BF, depth_scale=0.5, timestamp=1.5))(J(img), J(depth))
+    with jax.enable_x64(False):     # the JAX System's mode
+        jf = jax.jit(lambda im, d: jframe.build_rgbd_frame(
+            im, d, cfg_j, bf=BF, depth_scale=0.5, timestamp=1.5))(
+                J(img), J(depth))
     tf = tframe.build_rgbd_frame(img, depth, cfg_t, bf=BF, depth_scale=0.5,
                                  timestamp=1.5, device="cpu")
     assert_features_agree(tf, jf)

@@ -17,9 +17,8 @@ Tolerances and why:
   - Kernel B5's moment order (per-lane register sums, then warp shuffles)
     and its column blur taken only at the BRIEF taps, emulated in numpy
     f32, against the plain version's halving tree and full blur: exact.
-  - Unfused tail vs the JAX package's unfused branch: angles 2e-4, bits
-    <= 0.5 % (blur ties, as tests/test_torch_orb.py states for the fused
-    tail).
+  - Unfused tail vs the JAX package's unfused branch (its CPU program,
+    x64 off): exact in every field.
   - TAIL_KERNEL_MODE "on" vs "off" through extract_orb on the CPU: same
     keypoints, angles 2e-4, bits <= 0.1 %.
 """
@@ -240,16 +239,20 @@ def test_extract_orb_unfused_tail(monkeypatch, jax_exact_gather):
     monkeypatch.setattr(torb, "FUSED_TAIL_MODE", "off")
     img = textured_image(seed=3)
     cfg = jorb.OrbConfig(300, 4)
-    want = jax.jit(lambda im: jorb.extract_orb(im, cfg))(jnp.asarray(img))
+    with jax.enable_x64(False):
+        want = jax.jit(lambda im: jorb.extract_orb(im, cfg))(
+            jnp.asarray(img))
     got = torb.extract_orb(img, torb.OrbConfig(300, 4), device="cpu")
     valid = np.asarray(want.valid)
     assert valid.sum() > 180
     np.testing.assert_array_equal(got.valid.numpy(), valid)
     np.testing.assert_array_equal(got.uv.numpy(), np.asarray(want.uv))
-    np.testing.assert_allclose(got.angle.numpy()[valid],
-                               np.asarray(want.angle)[valid], atol=2e-4)
-    flips = bit_flips(got.desc.numpy()[valid], as_i32(want.desc)[valid])
-    assert flips <= 0.005 * valid.sum() * 256, flips
+    np.testing.assert_array_equal(got.level.numpy(), np.asarray(want.level))
+    for name in ("score", "angle"):
+        np.testing.assert_array_equal(
+            getattr(got, name).numpy().view(np.int32),
+            np.asarray(getattr(want, name)).view(np.int32))
+    assert bit_flips(got.desc.numpy(), as_i32(want.desc)) == 0
 
 
 @pytest.mark.parametrize("tail", ["fused", "unfused", "kernel"])

@@ -28,9 +28,12 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fast_nms.cu", "gather.cu", "matching.cu", "tail.cu")
+SOURCES = ("fast_nms.cu", "gather.cu", "matching.cu", "tail.cu", "xla_f32.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# Flags of one source: the extraction stages must round every operation
+# where it is written (xla_f32.cuh), so nvcc fuses no multiply-add there.
+SOURCE_FLAGS = {"xla_f32.cu": ("-fmad=false",)}
 
 LAUNCHES: dict[str, int] = {
     "fast_nms_blend": 0,
@@ -45,6 +48,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 _SIGNATURES = {
     "fast_nms.cu": {"vs_fast_nms_blend_multi": (_P, _I, _P, _F, _F, _F, _P)},
     "gather.cu": {"vs_gather_patches_multi": (_P, _I, _P, _I, _P)},
@@ -54,6 +58,14 @@ _SIGNATURES = {
                                       _I, _I, _P, _P),
     },
     "tail.cu": {"vs_tail_fused": (_P, _I, _P, _P, _P, _P, _P, _P)},
+    "xla_f32.cu": {
+        "vs_xf_resize_pass": (_P, _L, _L, _L, _I, _P, _P, _P, _P, _I, _I, _P,
+                              _L, _L, _P),
+        "vs_xf_ic_angle": (_P, _L, _L, _L, _P, _P, _P, _P),
+        "vs_xf_brief": (_P, _L, _P, _P, _P, _P, _P),
+        "vs_xf_blur7": (_P, _L, _I, _I, _P, _P, _P, _P),
+        "vs_xf_unary": (_P, _P, _P, _L, _I, _P),
+    },
 }
 
 
@@ -79,7 +91,8 @@ def _target(src: str) -> Path:
     h = hashlib.sha1((CSRC / src).read_bytes()
                      + b"".join(p.read_bytes()
                                 for p in sorted(CSRC.glob("*.cuh")))
-                     + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                     + " ".join(NVCC_FLAGS + SOURCE_FLAGS.get(src, ()))
+                     .encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(src).stem}_{h}.so"
 
 
@@ -98,7 +111,8 @@ def build_all(verbose: bool = False) -> float:
     for src in todo:
         out = _target(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()),
+               *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(CSRC / src)]
         procs.append((src, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))

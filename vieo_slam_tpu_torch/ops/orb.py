@@ -11,6 +11,13 @@ kernel B1 (ops/cuda_fast.py), the patch gathers of a frame in one launch
 of kernel B2 (ops/cuda_gather.py), and with `TAIL_KERNEL_MODE = "on"` the
 whole tail of a frame in one launch of kernel B5 (ops/cuda_tail.py).
 
+The pyramid, the IC angle, the blur and the rotated BRIEF taps run in
+ops/xla_f32.py, in the order of the JAX package's XLA CPU program (x64
+off), so either tail gives that program's features bit for bit on the CPU
+and on the card; the fused tail bounds each BRIEF tap to the level image,
+where its in-patch blur equals the whole-image blur.  B5 keeps its own
+arithmetic.
+
 Descriptors are [N, 8] int32 tensors carrying the bits of the JAX
 package's uint32 words.
 """
@@ -30,6 +37,8 @@ from ..utils.device import resolve_device
 from .cuda_fast import (FAST_CIRCLE, fast_nms_blend,  # noqa: F401
                         fast_nms_blend_multi, fast_score_maps, nms3)
 from .cuda_gather import gather_patches, gather_patches_flat
+from . import xla_f32
+from .xla_f32 import disc_mask as _disc_mask  # noqa: F401
 
 PATCH_RADIUS = 15          # IC_Angle circular patch
 DESC_BITS = 256
@@ -47,12 +56,6 @@ def _make_brief_pattern(seed: int = 7) -> np.ndarray:
 
 
 BRIEF_PATTERN = _make_brief_pattern()
-
-
-def _disc_mask(radius: int) -> np.ndarray:
-    """Circular patch mask (the reference's umax per-row extents)."""
-    yy, xx = np.mgrid[-radius:radius + 1, -radius:radius + 1]
-    return (xx * xx + yy * yy <= radius * radius).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,47 +103,15 @@ class OrbFeatures(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=64)
-def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[in, out] antialiased triangle-kernel resampling weights -- the
-    weight matrix of jax.image.resize(..., "bilinear") when it downsamples
-    (scale_and_translate with kernel width scaled by 1/scale), computed in
-    f64 and rounded to f32."""
-    scale = out_size / in_size
-    inv_scale = 1.0 / scale
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample_f[None, :]
-               - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale
-    w = np.maximum(0.0, 1.0 - np.abs(x))
-    tot = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(tot != 0, tot, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
-
-
-def _resize(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
-    """Antialiased bilinear downsample [H, W] -> [nh, nw] as two f32
-    matrix products, rows first, as jax.image.resize contracts them."""
-    h, w = img.shape
-    out = img
-    if nh != h:
-        wh = torch.from_numpy(_resize_weights(h, nh)).to(img.device)
-        out = wh.T @ out
-    if nw != w:
-        ww = torch.from_numpy(_resize_weights(w, nw)).to(img.device)
-        out = out @ ww
-    return out
-
-
 def build_pyramid(img: torch.Tensor, cfg: OrbConfig) -> list[torch.Tensor]:
-    """[H, W] f32 -> per-level images; each level resizes the previous one."""
+    """[H, W] f32 -> per-level images; each level resizes the previous one
+    (jax.image.resize "bilinear", as the reference's jitted program rounds
+    it: ops/xla_f32.py)."""
     h, w = img.shape
     levels = [img]
     for lv in range(1, cfg.n_levels):
         s = float(cfg.level_scales[lv])
-        levels.append(_resize(levels[-1], round(h / s), round(w / s)))
+        levels.append(xla_f32.resize(levels[-1], round(h / s), round(w / s)))
     return levels
 
 
@@ -266,43 +237,36 @@ _TAIL_R = BRIEF_R + _BLUR_HALO           # 26 -> 53x53 raw patch
 
 def ic_angle(patches: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation over the circular patch
-    [N, 31, 31] -> radians [N]."""
-    radius = (patches.shape[-1] - 1) // 2
-    mask = torch.from_numpy(_disc_mask(radius)).to(patches.device)
-    coords = torch.arange(-radius, radius + 1, dtype=patches.dtype,
-                          device=patches.device)
-    weighted = patches * mask
-    # Column sums then the x moment, row sums then the y moment: the
-    # order in which the JAX package's einsums reduce.
-    m10 = weighted.sum(dim=1) @ coords
-    m01 = weighted.sum(dim=2) @ coords
-    return torch.atan2(m01, m10)
+    [N, 31, 31] -> radians [N], with the reference's moment order and
+    atan2 (ops/xla_f32.py)."""
+    return xla_f32.ic_angle(patches)
 
 
 def _gauss7(sigma: float = 2.0) -> list[float]:
-    x = np.arange(-3, 4, dtype=np.float32)
-    k = np.exp(-0.5 * (x / sigma) ** 2)
-    k /= k.sum()
-    return [float(v) for v in k.astype(np.float32)]
+    return [float(v) for v in xla_f32.gauss7(sigma)]
 
 
 def _blur7_patch(patches: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
-    """Valid-region separable 7x7 Gaussian over [N, D, D] -> [N, D-6, D-6]."""
+    """Valid-region separable 7x7 Gaussian over [N, D, D] -> [N, D-6, D-6]
+    in PyTorch (the plain version of the tail kernel B5, ops/cuda_tail.py)."""
     k = _gauss7(sigma)
     dd = patches.shape[-1]
     h = sum(patches[:, :, i:i + dd - 6] * k[i] for i in range(7))
     return sum(h[:, i:i + dd - 6, :] * k[i] for i in range(7))
 
 
-def brief_from_patches(patches: torch.Tensor,
-                       angles: torch.Tensor) -> torch.Tensor:
-    """Rotated-BRIEF bits from blurred patches [N, 47, 47] -> [N, 8] int32."""
-    return brief_from_rotation(patches, torch.cos(angles), torch.sin(angles))
+def brief_from_patches(patches: torch.Tensor, angles: torch.Tensor,
+                       box: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotated-BRIEF bits from blurred patches [N, 47, 47] -> [N, 8] int32,
+    rotated by the reference's sin, cos and fused taps (ops/xla_f32.py);
+    `box` [N, 4] bounds the taps to (lo_x, hi_x, lo_y, hi_y)."""
+    return xla_f32.brief(patches, angles, BRIEF_PATTERN, box)
 
 
 def brief_from_rotation(patches: torch.Tensor, ca: torch.Tensor,
                         sa: torch.Tensor) -> torch.Tensor:
-    """brief_from_patches with the rotation given as cos [N] and sin [N]."""
+    """Rotated-BRIEF bits with the rotation given as cos [N] and sin [N], in
+    PyTorch (the plain version of the tail kernel B5, ops/cuda_tail.py)."""
     r = BRIEF_R
     d = 2 * r + 1
     assert patches.shape[-1] == d
@@ -326,15 +290,9 @@ def brief_from_rotation(patches: torch.Tensor, ca: torch.Tensor,
 
 def gaussian_blur7(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     """Separable 7x7 Gaussian over [..., H, W] with edge padding, rows
-    then columns (the blur the unfused tail samples descriptors from)."""
-    k = _gauss7(sigma)
-    h_, w_ = img.shape[-2:]
-    x = img.reshape(-1, 1, h_, w_)
-    pad = torch.nn.functional.pad(x, (3, 3, 3, 3), mode="replicate")
-    h = sum(pad[..., 3:-3, i:i + w_] * k[i] for i in range(7))
-    hpad = torch.nn.functional.pad(h, (0, 0, 3, 3), mode="replicate")
-    v = sum(hpad[..., i:i + h_, :] * k[i] for i in range(7))
-    return v.reshape(img.shape)
+    then columns (the blur the unfused tail samples descriptors from), with
+    the reference's fused 7-tap sums (ops/xla_f32.py)."""
+    return xla_f32.gaussian_blur7(img, sigma)
 
 
 def brief_descriptors(img_blur: torch.Tensor, centers: torch.Tensor,
@@ -379,13 +337,33 @@ def _use_tail_kernel() -> bool:
     return TAIL_KERNEL_MODE == "on"
 
 
-def _tail_from_big(big: torch.Tensor):
-    """(angle, desc) from pre-gathered [N, 53, 53] raw patches."""
+def _tap_box(level_imgs: list, level_uvs: list) -> torch.Tensor:
+    """[N, 4] int32 (lo_x, hi_x, lo_y, hi_y): the BRIEF taps of each
+    keypoint bounded to its level image, in 47x47 patch coordinates.  The
+    in-patch blur equals the whole-image blur inside the image; a tap past
+    the edge reads the edge pixel, as the unfused tail's gather from the
+    blurred image does."""
+    boxes = []
+    r = BRIEF_R
+    for im, uv in zip(level_imgs, level_uvs):
+        h, w = im.shape
+        cx = uv[:, 0].long().clamp(0, w - 1)
+        cy = uv[:, 1].long().clamp(0, h - 1)
+        boxes.append(torch.stack([(r - cx).clamp(min=0),
+                                  (r + w - 1 - cx).clamp(max=2 * r),
+                                  (r - cy).clamp(min=0),
+                                  (r + h - 1 - cy).clamp(max=2 * r)], -1))
+    return torch.cat(boxes).int()
+
+
+def _tail_from_big(big: torch.Tensor, box: torch.Tensor):
+    """(angle, desc) from pre-gathered [N, 53, 53] raw patches; box [N, 4]
+    from `_tap_box`."""
     c0 = _TAIL_R - PATCH_RADIUS
     ang = ic_angle(big[:, c0:c0 + 2 * PATCH_RADIUS + 1,
                        c0:c0 + 2 * PATCH_RADIUS + 1])
-    blurp = _blur7_patch(big)                                # [N, 47, 47]
-    return ang, brief_from_patches(blurp, ang)
+    blurp = xla_f32.blur7_valid(big)                         # [N, 47, 47]
+    return ang, brief_from_patches(blurp, ang, box)
 
 
 def extract_tail_fused(im: torch.Tensor, uv: torch.Tensor):
@@ -395,37 +373,25 @@ def extract_tail_fused(im: torch.Tensor, uv: torch.Tensor):
     return ang, desc
 
 
-def extract_tail_fused_multi(level_imgs: list, level_uvs: list,
-                             per_image: list | None = None):
-    """Fused tail of all levels of one image, or of several images whose
-    levels come image after image (`per_image`: the number of levels of
-    each; default one image).  With the tail kernel on: one launch of
-    kernel B5.  Otherwise one launch of kernel B2 gathers the 53x53 patches
-    of every level, image after image into one buffer, and one blur +
-    IC-angle + BRIEF pass runs per image on its slice of it (the PyTorch
-    tail's vectorized reductions are not row-independent to the last ulp,
-    so an image's result must not depend on the other image).  Returns
-    [(angle, desc), ...] per level."""
+def extract_tail_fused_multi(level_imgs: list, level_uvs: list):
+    """Fused tail of all levels of one or more images.  With the tail
+    kernel on: one launch of kernel B5.  Otherwise one launch of kernel B2
+    gathers the 53x53 patches of every entry into one buffer, and one
+    blur + IC-angle + BRIEF pass (ops/xla_f32.py, each keypoint on its own)
+    runs over all of it.  Returns [(angle, desc), ...] per level."""
     if _use_tail_kernel():
         from . import cuda_tail
         return cuda_tail.tail_fused_multi(level_imgs, level_uvs)
     counts = [int(uv.shape[0]) for uv in level_uvs]
     big = gather_patches_flat(level_imgs, level_uvs, _TAIL_R)
-    out, o, lv = [], 0, 0
-    for n_lv in per_image or [len(level_imgs)]:
-        sizes = counts[lv:lv + n_lv]
-        n = sum(sizes)
-        ang, desc = _tail_from_big(big[o:o + n])
-        out += zip(ang.split(sizes), desc.split(sizes))
-        o, lv = o + n, lv + n_lv
-    return out
+    ang, desc = _tail_from_big(big, _tap_box(level_imgs, level_uvs))
+    return list(zip(ang.split(counts), desc.split(counts)))
 
 
-def _tails(level_imgs: list, level_uvs: list, per_image: list):
-    """[(angle, desc), ...] per level through the configured tail; the
-    levels come image after image, `per_image` of each."""
+def _tails(level_imgs: list, level_uvs: list):
+    """[(angle, desc), ...] per level through the configured tail."""
     if _use_fused_tail():
-        return extract_tail_fused_multi(level_imgs, level_uvs, per_image)
+        return extract_tail_fused_multi(level_imgs, level_uvs)
     tails = []
     for im, uv in zip(level_imgs, level_uvs):
         ang = ic_angle(gather_patches(im, uv, PATCH_RADIUS))
@@ -501,7 +467,7 @@ def extract_orb_batch(imgs, cfg: OrbConfig, device=None) -> OrbFeatures:
     scores = fast_nms_blend_multi(level_imgs, cfg.fast_threshold,
                                   cfg.fast_min_threshold)
     sels = _select(scores, [int(per_level[lv]) for lv in levels * B], cfg)
-    tails = _tails(level_imgs, [uv for uv, _, _ in sels], [L] * B)
+    tails = _tails(level_imgs, [uv for uv, _, _ in sels])
     per_image = [_assemble(levels, sels[b * L:(b + 1) * L],
                            tails[b * L:(b + 1) * L], cfg, dev)
                  for b in range(B)]
